@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the Metronome scheduling core on one GPU.
+"""Drive the PyTorch/CUDA port of the Metronome repro on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -21,9 +21,17 @@ JSON line with its numbers and seconds:
   planner       J1 and F4 scheduled, then ``rotation.joint_solve`` and a
                 candidate batch through ``joint_solve_batch`` with
                 ``backend='kernel'`` held against ``backend='numpy'``
+  serve         RecurrentGemma-2B at full width (random weights from a
+                seed, bf16) served by ``launch.serve.serve_requests``: 8
+                requests in batches of 4, 4064-token prompts, 32 generated
+                tokens; prefill through the flash-attention and RG-LRU
+                kernels, decode steps reported to the stop-and-wait
+                controller; ``forward`` held against prefill's logits
   kernels       each kernel wrapper against its plain PyTorch version on the
-                very inputs the paths above gave it, plus a padding case and
-                a wide candidate batch; CUDA-event times and bounds
+                very inputs the paths above gave it, plus synthetic cases
+                (padding, a wide candidate batch, float32/bf16, causal,
+                windowed, bidirectional and ragged attention); CUDA-event
+                times, bounds and, for attention, the library's time
 
 Launch counts are zeroed just before each path and read just after it.
 Every check that fails raises, so the script exits non-zero; it also exits
@@ -50,6 +58,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import _cuda_build  # noqa: E402
+from repro_torch import configs as model_configs  # noqa: E402
 from repro_torch.configs.metronome_testbed import (MODEL_FLEET,  # noqa: E402
                                                    make_snapshot)
 from repro_torch.core import events as events_mod  # noqa: E402
@@ -69,24 +78,44 @@ from repro_torch.core.trace import (TraceJobSpec,  # noqa: E402
                                     trace_to_jobs)
 from repro_torch.core.workload import Workload  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_fwd)
 from repro_torch.kernels.metronome_fill import metronome_fill  # noqa: E402
 from repro_torch.kernels.metronome_score import (  # noqa: E402
     metronome_score_multilink, metronome_score_multilink_batch,
     metronome_score_pairwise)
+from repro_torch.kernels.rg_lru import rg_lru_pallas  # noqa: E402
+from repro_torch.launch.serve import (make_prompts,  # noqa: E402
+                                      serve_requests)
+from repro_torch.models import forward, init_model, param_count  # noqa: E402
+from repro_torch.runtime.comm_gate import IterationReporter  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 DEVICE = "cuda"
 
 FILL_TOL = 1e-4     # kernel vs plain version (tests/test_kernels.py)
 SCORE_TOL = 1e-4
 ORACLE_TOL = 1e-6   # float32 fill vs the float64 fill_python oracle
+# flash attention (TestFlashAttention), RG-LRU (TestRgLruKernel), and
+# forward vs prefill logits in bf16 (tests/test_models.py)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RG_LRU_TOL = 1e-4
+LOGIT_TOL = 2e-2
 
 SCORE_WRAPPERS = (metronome_score_multilink_batch, metronome_score_multilink,
                   metronome_score_pairwise)
-ALL_WRAPPERS = (metronome_fill,) + SCORE_WRAPPERS
+MODEL_WRAPPERS = (flash_attention_fwd, rg_lru_pallas)
+ALL_WRAPPERS = (metronome_fill,) + SCORE_WRAPPERS + MODEL_WRAPPERS
+
+# the serving traffic: full-width RecurrentGemma-2B, max_len 4096 (a
+# multiple of attn_chunk, so repro.launch.serve could serve the same), prompts
+# longer than the 2048-token window
+SERVE = dict(arch="recurrentgemma-2b", requests=8, batch=4, prompt_len=4064,
+             gen=32, seed=0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -307,12 +336,14 @@ def candidate_specs(cluster, registry, links: Sequence[str], n: int):
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Keeps the host inputs the ops entry points received while active
-    (at most ``keep`` calls per input shape) and the host time spent in
-    them: the cast, the copy to the device, the launch and the copy back,
-    which ends in a synchronisation."""
+    """Keeps the inputs the ops entry points received while active (at
+    most ``keep`` calls per input shape; host arrays copied, tensors cloned
+    on their device) and the host time spent in them.  For the Metronome
+    ops that is the cast, the copy to the device, the launch and the copy
+    back, which ends in a synchronisation; the model ops only enqueue."""
 
-    NAMES = ("progressive_fill", "score_multilink", "score_multilink_batch")
+    NAMES = ("progressive_fill", "score_multilink", "score_multilink_batch",
+             "flash_attention", "rg_lru")
 
     def __init__(self, keep: int = 1) -> None:
         self.keep = keep
@@ -330,7 +361,9 @@ class Recorder:
                 self.counts[name][shape] = self.counts[name].get(shape, 0) + 1
                 kept = self.calls[name].setdefault(shape, [])
                 if len(kept) < self.keep:
-                    kept.append([np.array(a, copy=True) for a in args])
+                    kept.append([a.detach().clone()
+                                 if isinstance(a, torch.Tensor)
+                                 else np.array(a, copy=True) for a in args])
                 t0 = time.perf_counter()
                 out = fn(*args, **kw)
                 self.seconds[name] += time.perf_counter() - t0
@@ -366,7 +399,7 @@ def counted(launches: Dict[str, int]):
         launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
 
 
-def device_busy_share(fn) -> dict:
+def device_busy_share(fn, note: str) -> dict:
     """Run ``fn`` under ``torch.profiler`` and return the device's busy
     time (kernels and copies, one stream, so no overlap) over the wall
     time; "not measured" where the trace holds no device event."""
@@ -390,7 +423,7 @@ def device_busy_share(fn) -> dict:
     return {"busy_share": busy_us / wall_us, "busy_s": busy_us / 1e6,
             "wall_s": wall_us / 1e6,
             "top_device_us": {k[:60]: v for k, v in top},
-            "note": "profiled run of the trace's first fifth"}
+            "note": note}
 
 
 def _sync() -> None:
@@ -510,7 +543,8 @@ def phase_experiment(launches, rec: Recorder, n_jobs: int) -> dict:
                     DYNAMIC_POLICY,
                     dynamic_sim_config(trace[:n_jobs // 5],
                                        fluid_backend="kernel",
-                                       device=DEVICE)))
+                                       device=DEVICE)),
+        "profiled run of the trace's first fifth")
     out = dict(n_jobs=n_jobs,
                cut=f"{n_jobs} of the reference bench's 10,000 jobs, for "
                    "the run's time limit",
@@ -586,6 +620,111 @@ def phase_planner(launches, rec: Recorder, n_candidates: int = 8) -> dict:
     return out
 
 
+class CountingController(StopAndWaitController):
+    """The stop-and-wait controller, counting the iteration reports."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.reports = 0
+
+    def report_iteration(self, job: str, iter_ms: float):
+        self.reports += 1
+        return super().report_iteration(job, iter_ms)
+
+
+def phase_serve(launches, rec: Recorder) -> dict:
+    cfg = model_configs.get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SERVE["seed"])
+    params = init_model(cfg, gen, DEVICE)
+    prompts = make_prompts(cfg, SERVE["requests"], SERVE["batch"],
+                           SERVE["prompt_len"], gen, DEVICE)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    serve_requests(params, cfg, prompts[:1], 2,
+                   IterationReporter(None, "warm-up", 1))
+    ctl = CountingController()
+    reporter = IterationReporter(ctl, f"serve-{SERVE['arch']}", priority=1)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(launches), rec.active():
+        t0 = time.perf_counter()
+        res = serve_requests(params, cfg, prompts, SERVE["gen"], reporter)
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = len(prompts)
+    steps = SERVE["gen"] - 1
+    check(res.finite, "serve: a logit is not finite")
+    check(launches["flash_attention_fwd"] == 8 * n_batches,
+          f"serve: {launches['flash_attention_fwd']} flash launches, "
+          f"expected {8 * n_batches}")
+    check(launches["rg_lru_pallas"] == 18 * n_batches,
+          f"serve: {launches['rg_lru_pallas']} RG-LRU launches, "
+          f"expected {18 * n_batches}")
+    check(ctl.reports == n_batches * steps,
+          f"serve: the controller received {ctl.reports} reports, expected "
+          f"{n_batches * steps}")
+    check(all(t.shape == (SERVE["batch"], SERVE["gen"]) for t in res.tokens),
+          "serve: generated tokens of the wrong shape")
+
+    # forward over the first batch's prompts, held against prefill's
+    # last-position logits; its launches are counted apart
+    for w in MODEL_WRAPPERS:
+        w.launches = 0
+    with torch.inference_mode():
+        full = forward(params, cfg, prompts[0])
+        fwd_err = float((full[:, -1] - res.prefill_logits[0][:, 0])
+                        .abs().max())
+        check(bool(torch.isfinite(full[:, -1]).all()),
+              "forward: a logit is not finite")
+    fwd_launches = {w.__name__: w.launches for w in MODEL_WRAPPERS}
+    del full
+    check(fwd_err <= LOGIT_TOL,
+          f"forward vs prefill last logits: max abs err {fwd_err} > "
+          f"{LOGIT_TOL}")
+
+    # where a batch's time goes: one batch of 8 tokens under the profiler
+    with torch.inference_mode():
+        busy = device_busy_share(
+            lambda: serve_requests(params, cfg, prompts[:1], 8,
+                                   IterationReporter(None, "profile", 1)),
+            "profiled run of one batch, prefill and 7 decode steps")
+    for w in MODEL_WRAPPERS:
+        w.launches = 0
+
+    step_ms = sorted(1e3 * t for t in res.step_s)
+    n_tok = sum(t.numel() for t in res.tokens)
+    out = dict(arch=cfg.name, params=n_params, param_bytes=n_bytes,
+               dtype=str(cfg.dtype), requests=SERVE["requests"],
+               batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
+               gen=SERVE["gen"], init_seconds=init_s, seconds=seconds,
+               prefill_ms=[1e3 * t for t in res.prefill_s],
+               decode_step_ms_median=statistics.median(step_ms),
+               decode_step_ms_p90=step_ms[int(0.9 * (len(step_ms) - 1))],
+               decode_steps=len(step_ms),
+               tokens=n_tok, tokens_per_s=n_tok / seconds,
+               prompt_tokens_per_s=SERVE["requests"] * SERVE["prompt_len"]
+               / sum(res.prefill_s),
+               decode_tokens_per_s=SERVE["batch"] * len(step_ms)
+               / sum(res.step_s),
+               flash_launches=launches["flash_attention_fwd"],
+               rg_lru_launches=launches["rg_lru_pallas"],
+               controller_reports=ctl.reports,
+               peak_memory_bytes=peak,
+               forward_vs_prefill_max_abs_err=fwd_err,
+               forward_launches=fwd_launches, device_busy=busy)
+    emit("serve", **out)
+    return out
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    for v in tree.values():
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
 def _dev(arrays, dtypes) -> List[torch.Tensor]:
     return [torch.from_numpy(np.ascontiguousarray(a, dtype=t)).to(DEVICE)
             for a, t in zip(arrays, dtypes)]
@@ -650,10 +789,123 @@ def _score_case(fn, plain, args: Sequence[np.ndarray], scalar=None) -> dict:
                 bound_by=bound_by, bytes=nbytes, operations=n_ops)
 
 
-def _bound(nbytes: int, n_ops: int) -> Tuple[float, str]:
+def _bound(nbytes: int, n_ops: int,
+           peak_ops: float = PEAK_FP32_OPS_PER_S) -> Tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _unmasked_pairs(s: int, causal: bool, window: int) -> int:
+    """(q, k) pairs per head that the masks leave, for S = s."""
+    i = np.arange(s, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = i + 1 if causal else np.full_like(i, s)
+    return int(np.sum(hi - lo))
+
+
+def _sdpa(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The library's attention on the same inputs (timed here only; the
+    port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window <= 0:
+        return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    s = q.shape[2]
+    i = torch.arange(s, device=q.device)
+    mask = (i[:, None] - i[None, :]) < window
+    if causal:
+        mask &= i[:, None] >= i[None, :]
+    return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def _flash_case(q, k, v, causal: bool, window: int) -> dict:
+    """Flash kernel vs plain attention on one launch's inputs."""
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    _sync()
+    tol = FLASH_TOL[q.dtype]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    check(bool(torch.isfinite(got).all()), "flash kernel: non-finite")
+    check(bool((diff <= tol + tol * want.float().abs()).all()),
+          f"flash kernel {tuple(q.shape)} {q.dtype} causal={causal} "
+          f"window={window}: max abs err {err} over {tol} abs+rel")
+    lib = _sdpa(q, k, v, causal, window)
+    lib_err = float((lib.float() - want.float()).abs().max())
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window))
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
+                                                 window=window),
+                       reps=5, warmup=1)
+    library_ms = time_ms(lambda: _sdpa(q, k, v, causal, window))
+    b, h, s, d = q.shape
+    pairs = _unmasked_pairs(s, causal, window)
+    n_ops = b * h * pairs * 4 * d  # q.k and p.v, a multiply and an add each
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+        * q.element_size()
+    peak = PEAK_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+        else PEAK_FP32_OPS_PER_S
+    bound_ms, bound_by = _bound(nbytes, n_ops, peak)
+    return dict(shape={"q": list(q.shape), "kv": list(k.shape)},
+                dtype=str(q.dtype), causal=causal, window=window,
+                max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_max_abs_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                operations=n_ops, unmasked_pairs_per_head=pairs)
+
+
+def _rg_lru_case(a, x) -> dict:
+    """RG-LRU kernel vs the plain loop on one launch's inputs."""
+    got = rg_lru_pallas(a, x)
+    want = ref.rg_lru_ref(a, x)
+    _sync()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= RG_LRU_TOL + RG_LRU_TOL * want.abs()).all()),
+          f"RG-LRU kernel {tuple(x.shape)}: max abs err {err}")
+    ms = time_ms(lambda: rg_lru_pallas(a, x))
+    plain_ms = time_ms(lambda: ref.rg_lru_ref(a, x), reps=3, warmup=1)
+    nbytes = 3 * x.numel() * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * x.numel())
+    return dict(shape=list(x.shape), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, operations=2 * x.numel())
+
+
+def _qkv(seed: int, b: int, h: int, hkv: int, s: int, d: int, dtype):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _gates(seed: int, shape: Tuple[int, ...]):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=DEVICE)) \
+        * 0.3 + 0.65
+    return a, torch.randn(shape, generator=g, device=DEVICE)
+
+
+def model_kernel_cases(serve: Recorder) -> Dict[str, dict]:
+    """The flash and RG-LRU kernels on the serve path's first launches,
+    then on synthetic cases."""
+    cases: Dict[str, dict] = {}
+    q, k, v, causal, window = serve.inputs("flash_attention")[0]
+    cases["flash_serve"] = _flash_case(q, k, v, bool(causal), int(window))
+    a, x = serve.inputs("rg_lru")[0]
+    cases["rg_lru_serve"] = _rg_lru_case(a, x)
+    for d in (64, 128):
+        for g in (1, 4):
+            cases[f"flash_f32_causal_d{d}_g{g}"] = _flash_case(
+                *_qkv(d + g, 2, 4, 4 // g, 256, d, torch.float32), True, 0)
+    cases["flash_bf16_window256"] = _flash_case(
+        *_qkv(5, 1, 4, 1, 1024, 128, torch.bfloat16), True, 256)
+    cases["flash_f32_bidirectional"] = _flash_case(
+        *_qkv(6, 1, 2, 2, 256, 64, torch.float32), False, 0)
+    cases["flash_bf16_ragged_s1000_d256_g10"] = _flash_case(
+        *_qkv(7, 1, 10, 1, 1000, 256, torch.bfloat16), True, 0)
+    cases["rg_lru_2x512x1024"] = _rg_lru_case(*_gates(8, (2, 512, 1024)))
+    cases["rg_lru_ragged_1x37x300"] = _rg_lru_case(*_gates(9, (1, 37, 300)))
+    return cases
 
 
 def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
@@ -665,8 +917,8 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
     return base, bank_a, bank_b, caps
 
 
-def phase_kernels(corpus: Recorder, loop: Recorder,
-                  planner: Recorder) -> dict:
+def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
+                  serve: Recorder) -> dict:
     cases: Dict[str, dict] = {}
     # fill: the trace corpus's buckets, the event loop's commonest launch
     cases["fill_trace_corpus"] = _fill_case(corpus.inputs("progressive_fill"))
@@ -716,14 +968,18 @@ def phase_kernels(corpus: Recorder, loop: Recorder,
         if name.startswith("score_"):
             check(case["max_abs_err"] <= SCORE_TOL,
                   f"{name}: kernel vs plain {case['max_abs_err']}")
-    emit("kernels", tolerance={"fill": FILL_TOL, "score": SCORE_TOL},
-         cases=cases)
+    cases.update(model_kernel_cases(serve))
+    emit("kernels", tolerance={
+        "fill": FILL_TOL, "score": SCORE_TOL, "rg_lru": RG_LRU_TOL,
+        "flash": {str(k): v for k, v in FLASH_TOL.items()}}, cases=cases)
     return cases
 
 
 def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict]) -> dict:
     fill = cases["fill_trace_corpus"]
     score = cases["score_multilink_batch_planner0"]
+    flash = cases["flash_serve"]
+    rg = cases["rg_lru_serve"]
     score_err = max(v["max_abs_err"] for n, v in cases.items()
                     if n.startswith("score_") and "max_abs_err" in v)
     fill_err = max(v["max_abs_err"] for n, v in cases.items()
@@ -748,6 +1004,25 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict]) -> dict:
              max_abs_err=score_err, ms=score["ms"],
              plain_ms=score["plain_ms"], bound_ms=score["bound_ms"],
              bound_by=score["bound_by"], library_ms=None),
+        dict(name="flash_attention_fwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:31",
+             launches=launches.get("flash_attention_fwd", 0),
+             max_abs_err=flash["max_abs_err"], ms=flash["ms"],
+             plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
+             bound_by=flash["bound_by"], library_ms=flash["library_ms"],
+             library="torch.nn.functional.scaled_dot_product_attention",
+             shape=flash["shape"]),
+        dict(name="rg_lru_pallas", route="cuda",
+             source="src/repro_torch/kernels/csrc/rg_lru.cu",
+             replaces="src/repro/kernels/rg_lru.py:25",
+             launches=launches.get("rg_lru_pallas", 0),
+             max_abs_err=rg["max_abs_err"], ms=rg["ms"],
+             plain_ms=rg["plain_ms"], bound_ms=rg["bound_ms"],
+             bound_by=rg["bound_by"], library_ms=None,
+             library="none: no single PyTorch call computes a first-order "
+                     "linear recurrence",
+             shape=rg["shape"]),
     ]
     return {"kernels": kernels}
 
@@ -769,10 +1044,12 @@ def main() -> int:
     phase_build()
     launches: Dict[str, int] = {}
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
+    serve = Recorder()
     phase_trace_corpus(launches, corpus)
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_planner(launches, planner)
-    cases = phase_kernels(corpus, loop, planner)
+    phase_serve(launches, serve)
+    cases = phase_kernels(corpus, loop, planner, serve)
     print(json.dumps(kernel_summary(launches, cases)), flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
     print(info["nvidia_smi"], flush=True)

@@ -27,12 +27,21 @@ if TYPE_CHECKING:
 
 CSRC = Path(__file__).resolve().parent / "kernels" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("metronome_fill", "metronome_score")
+SOURCES = ("metronome_fill", "metronome_score", "flash_attention", "rg_lru")
 
-# sm_90a keeps Hopper's wgmma/setmaxnreg available; -fmad=false keeps every
-# multiply and add separately rounded, as the plain PyTorch versions do
+# sm_90a keeps Hopper's wgmma/setmaxnreg available
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+# -fmad=false keeps every multiply and add separately rounded, as the plain
+# PyTorch versions do, so those kernels match them bit for bit (the score
+# kernel up to its sum order).  The flash kernel's dot products keep fused
+# multiply-adds: they are its bound, and its tolerances hold either way.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "metronome_fill": ("-fmad=false",),
+    "metronome_score": ("-fmad=false",),
+    "flash_attention": (),
+    "rg_lru": ("-fmad=false",),
+}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -47,14 +56,18 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def _nvcc_command(name: str, out: Path) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+    return [nvcc(), *_flags(name), "-Xptxas", "-v", "-o", str(out),
             str(CSRC / f"{name}.cu")]
 
 

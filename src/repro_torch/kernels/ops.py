@@ -1,6 +1,8 @@
-"""Public entry points of the Metronome kernels, with device dispatch.
+"""Public entry points of the port's kernels, with device dispatch.
 
-Each op takes host arrays (any float dtype; ``core`` builds float64), casts
+The model ops (``flash_attention``, ``rg_lru``) take tensors and dispatch
+on their device: the kernel on a CUDA device (or raise), the plain version
+from :mod:`ref` on the CPU.  Each Metronome op takes host arrays (any float dtype; ``core`` builds float64), casts
 them to the kernels' types here — float32, and uint8 for the 0/1 route
 matrix — copies them to ``device`` once, and dispatches on the tensors'
 device: on a CUDA device the hand-written kernel runs (or raises), on the
@@ -16,10 +18,12 @@ import torch
 
 from .. import _device
 from . import ref
+from .flash_attention import flash_attention_fwd
 from .metronome_fill import metronome_fill
 from .metronome_score import (metronome_score_multilink,
                               metronome_score_multilink_batch,
                               metronome_score_pairwise)
+from .rg_lru import rg_lru_pallas
 
 Device = Union[str, torch.device]
 
@@ -30,6 +34,37 @@ def _to(x, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    :func:`ref.attention_ref`, as the JAX package's ``_fa_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.attention_ref(*leaves, causal=ctx.causal,
+                                    window=ctx.window)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B,H,S,D) x (B,Hkv,S,D)^2 -> (B,H,S,D), differentiable."""
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -88,3 +123,12 @@ def progressive_fill(demands, routes, caps,
     return _host(metronome_fill(
         _to(demands, np.float32, dev), _to(routes, np.uint8, dev),
         _to(caps, np.float32, dev)))
+
+
+# ---------------------------------------------------------------------------
+# rg-lru recurrence
+# ---------------------------------------------------------------------------
+
+def rg_lru(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y_t = a_t * y_{t-1} + x_t along S from a zero state, (B, S, W)."""
+    return rg_lru_pallas(a, x)

@@ -1,21 +1,65 @@
-"""Plain PyTorch versions of the Metronome kernels (the allclose targets).
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
 
 Each function computes what its hand-written CUDA kernel computes, with
 ordinary tensor operations on whatever device its inputs lie on.  The
 kernels' wrappers take these for CPU tensors, the CPU tests hold them
 against the JAX package's oracles, and the chip smoke test holds each
-kernel against them on the card.  Everything is float32, as the kernels
-are.
+kernel against them on the card.  The Metronome kernels are float32
+throughout; attention accumulates in float32 and returns q's dtype, the
+RG-LRU recurrence carries a float32 state and returns x's dtype.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
 
 def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.float32)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Naive full-softmax GQA attention. q: (B,H,S,D), k/v: (B,Hkv,S,D).
+
+    q head h reads kv head h // (H // Hkv); masked scores take -1e30;
+    ``window`` > 0 keeps q_pos - k_pos < window."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    kr = k.repeat_interleave(g, dim=1)
+    vr = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
+    return o.to(q.dtype)
+
+
+def rg_lru_ref(a: torch.Tensor, x: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Linear recurrence oracle: y_t = a_t * y_{t-1} + x_t over (B, S, W),
+    one step at a time with a float32 state."""
+    b, s, w = x.shape
+    h = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    af, xf = a.float(), x.float()
+    ys = torch.empty((b, s, w), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        h = af[:, t] * h + xf[:, t]
+        ys[:, t] = h
+    return ys.to(x.dtype)
 
 
 def metronome_score_ref(base_demand, bank_a, bank_b,

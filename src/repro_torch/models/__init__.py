@@ -1,0 +1,8 @@
+from .config import SHAPES, ModelConfig, ShapeConfig
+from .convert import params_from_jax
+from .model import (decode_step, forward, init_cache, init_model,
+                    param_count, prefill)
+
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "decode_step", "forward",
+           "init_cache", "init_model", "param_count", "params_from_jax",
+           "prefill"]

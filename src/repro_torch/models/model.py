@@ -1,0 +1,284 @@
+"""Model assembly: init / forward / prefill / decode (the griffin family).
+
+RecurrentGemma: repeating (RG-LRU, RG-LRU, local attention) groups, every
+temporal block followed by an MLP, and a tail of RG-LRU sublayers when the
+layer count is not a multiple of 3.  The JAX package's ``models/model.py``
+op for op; parameters keep its tree, with the per-layer weights of
+``groups`` and ``tail`` stacked on a leading axis, and its ``lax.scan`` over
+layers is a Python loop.  Caches are updated in place.
+
+The other families of the JAX package are not ported yet: the port raises
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from .. import _device
+from . import layers as L
+from . import recurrent as R
+from .config import ATTN, RGLRU, ModelConfig
+
+Tree = Dict[str, Union["Tree", torch.Tensor]]
+
+_PENDING = {
+    "dense": "ROADMAP A13 (dense family)",
+    "moe": "ROADMAP A13 (moe family, models/moe.py)",
+    "xlstm": "ROADMAP A13 (xlstm family, sLSTM/mLSTM cells)",
+    "encdec": "ROADMAP A13 (encdec family)",
+}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "griffin":
+        if cfg.family in _PENDING:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family is not ported yet, "
+                f"see {_PENDING[cfg.family]}")
+        raise ValueError(cfg.family)
+
+
+def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Tree) -> Tree:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _stack(trees: List[Tree]) -> Tree:
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def _layer(tree: Tree, i: int) -> Tree:
+    return _tree_map(lambda t: t[i], tree)
+
+
+def _n_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    n_groups = cfg.n_layers // 3
+    return n_groups, cfg.n_layers - 3 * n_groups
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _griffin_sub_init(cfg: ModelConfig, kind: str,
+                      gen: torch.Generator) -> Tree:
+    p: Tree = {"ln": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device)}
+    p["block"] = (R.init_rg_lru(cfg, gen) if kind == RGLRU
+                  else L.init_attention(cfg, gen))
+    p["ln_mlp"] = L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device)
+    p["mlp"] = L.init_mlp(cfg, gen)
+    return p
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device: Union[str, torch.device] = "cuda") -> Tree:
+    """Random parameters with the JAX init's shapes, scales and dtypes,
+    drawn from ``generator`` on its own device and placed on ``device``.
+    Raises when a CUDA device is asked for and there is none."""
+    dev = _device.resolve(device)
+    _check_family(cfg)
+    gen = generator
+    p: Tree = {
+        "embed": L.truncated_normal(gen, (cfg.vocab, cfg.d_model),
+                                    cfg.param_dtype, 0.02),
+        "head": L.truncated_normal(gen, (cfg.d_model, cfg.vocab),
+                                   cfg.param_dtype, 0.02),
+        "ln_f": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
+    }
+    n_groups, n_tail = _n_groups(cfg)
+    p["groups"] = _stack([{"rg1": _griffin_sub_init(cfg, RGLRU, gen),
+                           "rg2": _griffin_sub_init(cfg, RGLRU, gen),
+                           "attn": _griffin_sub_init(cfg, ATTN, gen)}
+                          for _ in range(n_groups)])
+    if n_tail:
+        p["tail"] = _stack([_griffin_sub_init(cfg, RGLRU, gen)
+                            for _ in range(n_tail)])
+    return _tree_map(lambda t: t.to(dev), p)
+
+
+def param_count(params: Tree) -> int:
+    n = 0
+    for v in params.values():
+        n += param_count(v) if isinstance(v, dict) else v.numel()
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Block body shared by forward and prefill
+# ---------------------------------------------------------------------------
+
+def _griffin_sub_seq(cfg: ModelConfig, x, sp, kind, positions, state=None,
+                     cache=None, cache_index=None):
+    h_in = L.rmsnorm(sp["ln"], x, cfg.norm_eps)
+    new_state, new_cache = None, None
+    if kind == RGLRU:
+        h, new_state = R.griffin_recurrent_block(sp["block"], cfg, h_in, state)
+    else:
+        h, new_cache = L.attention_layer(
+            sp["block"], cfg, h_in, positions=positions, causal=True,
+            window=cfg.window, cache=cache, cache_index=cache_index)
+    x = x + h
+    x = x + L.mlp(sp["mlp"], L.rmsnorm(sp["ln_mlp"], x, cfg.norm_eps))
+    return x, new_state, new_cache
+
+
+def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return x.to(cfg.logit_dtype) @ params["head"].to(cfg.logit_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward over whole sequences (no cache). tokens: (B, S) -> logits
+    (B, S, V) in ``cfg.logit_dtype``."""
+    _check_family(cfg)
+    x = params["embed"][tokens].to(cfg.dtype)
+    n_groups, n_tail = _n_groups(cfg)
+    for i in range(n_groups):
+        gp = _layer(params["groups"], i)
+        x, _, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
+        x, _, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
+        x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions)
+    for i in range(n_tail):
+        x, _, _ = _griffin_sub_seq(cfg, x, _layer(params["tail"], i), RGLRU,
+                                   positions)
+    return _logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init, prefill, decode step
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               prefill: bool = False,
+               device: Union[str, torch.device] = "cuda") -> Tree:
+    """Decode state. Attention caches are in ``cfg.dtype``.
+
+    The decode cache is a ring buffer of the window size; prefill uses a
+    full-length buffer instead (and decode after prefill keeps it, so it
+    attends over every earlier position: ROADMAP C3)."""
+    _check_family(cfg)
+    dev = _device.resolve(device)
+    hd, kv = cfg.head_dim, cfg.n_kv
+    n_groups, n_tail = _n_groups(cfg)
+    win = max_len if prefill else min(cfg.window or max_len, max_len)
+    w = cfg.lru_width or cfg.d_model
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+
+    cache: Tree = {
+        "k": zeros(n_groups, batch, win, kv, hd),
+        "v": zeros(n_groups, batch, win, kv, hd),
+        "conv": zeros(n_groups, 2, batch, cfg.conv_width - 1, w),
+        "h": zeros(n_groups, 2, batch, w),
+        "index": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+    if n_tail:
+        cache["tail_conv"] = zeros(n_tail, batch, cfg.conv_width - 1, w)
+        cache["tail_h"] = zeros(n_tail, batch, w)
+    return cache
+
+
+def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Tree]:
+    """Process the prompt, build the decode state. Returns (last_logits
+    (B, 1, V), cache); ``max_len`` reserves cache room for decoding.  Runs
+    on the device of the parameters."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max(max_len or s, s), prefill=True,
+                       device=params["embed"].device)
+    x = params["embed"][tokens].to(cfg.dtype)
+    n_groups, n_tail = _n_groups(cfg)
+    for i in range(n_groups):
+        gp = _layer(params["groups"], i)
+        x, s1, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
+        x, s2, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
+        x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions,
+                                   cache=(cache["k"][i], cache["v"][i]),
+                                   cache_index=0)
+        for j, st in enumerate((s1, s2)):
+            cache["conv"][i, j] = st["conv"]
+            cache["h"][i, j] = st["h"]
+    for i in range(n_tail):
+        x, st, _ = _griffin_sub_seq(cfg, x, _layer(params["tail"], i), RGLRU,
+                                    positions)
+        cache["tail_conv"][i] = st["conv"]
+        cache["tail_h"][i] = st["h"]
+    cache["index"].fill_(s)
+    return _logits(params, cfg, x[:, -1:]), cache
+
+
+def _ring_positions(win: int, index: torch.Tensor) -> torch.Tensor:
+    """Absolute position stored in each ring-buffer slot at time ``index``."""
+    i = torch.arange(win, device=index.device)
+    return index - ((index - i) % win)
+
+
+def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Tree]:
+    """One token step. tokens: (B, 1). Returns (logits (B,1,V), cache).
+
+    The cache's tensors are updated in place and returned with the index
+    advanced; the step reads no value back to the host."""
+    _check_family(cfg)
+    b = tokens.shape[0]
+    index = cache["index"]
+    x = params["embed"][tokens].to(cfg.dtype)
+    pos = index.reshape(1, 1).expand(b, 1)
+    win = cache["k"].shape[2]
+    slot = (index % win).reshape(1).long()
+    kpos = _ring_positions(win, index)
+    valid = (kpos <= index) & (index - kpos < win) & (kpos >= 0)
+    hd, n_h, n_kv = cfg.head_dim, cfg.n_heads, cfg.n_kv
+
+    def attn_ring(sp, x_in, ck, cv):
+        h_in = L.rmsnorm(sp["ln"], x_in, cfg.norm_eps)
+        ap = sp["block"]
+        q = (h_in @ ap["wq"]).reshape(b, 1, n_h, hd)
+        k = (h_in @ ap["wk"]).reshape(b, 1, n_kv, hd)
+        v = (h_in @ ap["wv"]).reshape(b, 1, n_kv, hd)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        sc = torch.einsum(
+            "bqkgd,bckd->bkgqc",
+            q.reshape(b, 1, n_kv, n_h // n_kv, hd).float(),
+            ck.float()) / math.sqrt(hd)
+        sc = torch.where(valid, sc, L.NEG_INF)
+        w = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bkgqc,bckd->bkgqd", w, cv.float())
+        o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, n_h * hd).to(x_in.dtype)
+        x_new = x_in + o @ ap["wo"]
+        return x_new + L.mlp(sp["mlp"],
+                             L.rmsnorm(sp["ln_mlp"], x_new, cfg.norm_eps))
+
+    n_groups, n_tail = _n_groups(cfg)
+    for i in range(n_groups):
+        gp = _layer(params["groups"], i)
+        for j, name in enumerate(("rg1", "rg2")):
+            st = {"conv": cache["conv"][i, j], "h": cache["h"][i, j]}
+            x, st, _ = _griffin_sub_seq(cfg, x, gp[name], RGLRU, pos, state=st)
+            cache["conv"][i, j] = st["conv"]
+            cache["h"][i, j] = st["h"]
+        x = attn_ring(gp["attn"], x, cache["k"][i], cache["v"][i])
+    for i in range(n_tail):
+        st = {"conv": cache["tail_conv"][i], "h": cache["tail_h"][i]}
+        x, st, _ = _griffin_sub_seq(cfg, x, _layer(params["tail"], i), RGLRU,
+                                    pos, state=st)
+        cache["tail_conv"][i] = st["conv"]
+        cache["tail_h"][i] = st["h"]
+    new_cache = dict(cache, index=index + 1)
+    return _logits(params, cfg, x), new_cache

@@ -1,0 +1,126 @@
+"""The port's flash-attention and RG-LRU kernels and its griffin prefill, on
+the card.
+
+Every test here is marked ``cuda`` and skips (with its reason) where no CUDA
+device is present: a CUDA kernel has no CPU build.  The file imports only
+numpy, torch and the port, so it runs on a GPU machine that has no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_models_cuda.py
+
+Tolerances: flash attention 2e-5 in float32 and 2e-2 in bfloat16, RG-LRU
+1e-4 (the reference's own, ``tests/test_kernels.py``); the model on the card
+against the same weights on the CPU 1e-4 in float32 (another attention
+order, another matmul library) and 2e-2 in bfloat16.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch import models
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.rg_lru import rg_lru_pallas
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RG_LRU_TOL = 1e-4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(seed, b, h, hkv, s, d, dtype, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,dtype,causal,window", [
+    (2, 4, 4, 256, 64, torch.float32, True, 0),
+    (2, 4, 1, 256, 64, torch.float32, True, 0),
+    (2, 4, 4, 256, 128, torch.float32, True, 0),
+    (2, 4, 1, 256, 128, torch.float32, True, 0),
+    (1, 4, 1, 1024, 128, torch.bfloat16, True, 256),
+    (1, 2, 2, 256, 64, torch.float32, False, 0),
+    (1, 2, 1, 200, 64, torch.float32, False, 50),
+    (1, 10, 1, 1000, 256, torch.bfloat16, True, 0),
+    (1, 10, 1, 1000, 256, torch.float32, True, 300),
+    (4, 10, 1, 4064, 256, torch.bfloat16, True, 2048),
+])
+def test_flash_kernel_matches_plain(cuda, b, h, hkv, s, d, dtype, causal,
+                                    window):
+    q, k, v = _qkv(s + d, b, h, hkv, s, d, dtype, cuda)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(0, 1, 2, 1, 64, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q, k, v)
+    q, k, v = _qkv(0, 1, 2, 1, 64, 64, torch.float16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 512, 1024), (4, 4064, 2560),
+                                   (1, 37, 300)])
+def test_rg_lru_kernel_matches_plain(cuda, b, s, w):
+    g = torch.Generator(device=cuda).manual_seed(s + w)
+    a = torch.sigmoid(torch.randn((b, s, w), generator=g, device=cuda)) \
+        * 0.3 + 0.65
+    x = torch.randn((b, s, w), generator=g, device=cuda)
+    before = rg_lru_pallas.launches
+    got = rg_lru_pallas(a, x)
+    torch.cuda.synchronize()
+    assert rg_lru_pallas.launches == before + 1
+    want = ref.rg_lru_ref(a, x)
+    torch.testing.assert_close(got, want, atol=RG_LRU_TOL, rtol=RG_LRU_TOL)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_smoke_prefill_and_decode_on_the_card_match_the_cpu(cuda, dtype, tol):
+    # head dim 64 (the smoke config's 16 is below the kernel's 64/128/256)
+    cfg = dataclasses.replace(configs.get_smoke_config("recurrentgemma-2b"),
+                              d_head=64, n_layers=8, dtype=dtype,
+                              param_dtype=dtype)
+    cpu = models.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = _to(cpu, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 27)))
+    s = 24  # longer than the window of 16
+    counts = (flash_attention_fwd.launches, rg_lru_pallas.launches)
+    want, wc = models.prefill(cpu, cfg, toks[:, :s], max_len=s + 4)
+    got, gc = models.prefill(dev, cfg, toks[:, :s].to(cuda), max_len=s + 4)
+    assert (flash_attention_fwd.launches - counts[0],
+            rg_lru_pallas.launches - counts[1]) == (2, 6)
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)
+    for t in range(s, s + 3):
+        want, wc = models.decode_step(cpu, cfg, wc, toks[:, t:t + 1])
+        got, gc = models.decode_step(dev, cfg, gc, toks[:, t:t + 1].to(cuda))
+        torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)
+    for key in wc:
+        torch.testing.assert_close(gc[key].cpu().float(), wc[key].float(),
+                                   atol=tol, rtol=tol)
