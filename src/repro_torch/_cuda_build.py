@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -97,6 +98,31 @@ def build_all() -> Dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return reports
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, stack frame and spill bytes of each kernel entry in an
+    ``nvcc -Xptxas -v`` log, by mangled entry name."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = out.setdefault(m.group(1), {})
+        elif entry is None:
+            continue
+        elif m := _FRAME.search(line):
+            frame, stores, loads = map(int, m.groups())
+            entry.update(stack_bytes=frame, spill_store_bytes=stores,
+                         spill_load_bytes=loads)
+        elif m := _REGS.search(line):
+            entry["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]

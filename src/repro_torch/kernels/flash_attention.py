@@ -8,12 +8,16 @@ own keys (``models/layers.attention_layer``), where the JAX package computes
 the same function with ``layers.chunked_attention`` in XLA.
 
 What bounds it on the H100 is operations: 4*D per unmasked (q, k) pair,
-about 0.26 ms at the 989 TFLOP/s bf16 peak for one serving launch (B=4,
-H=10, S=4064, D=256, window 2048).  The source (``csrc/flash_attention.cu``)
-is the simple right design: one block per (batch*head, 64-row q tile), k
-and v tiles of 64 rows staged in shared memory as float32, online softmax
-in registers, float32 FMAs on the CUDA cores, tiles wholly masked never
-loaded, a ragged last tile masked in the kernel.  Tensor cores come later.
+about 0.26 ms at the 989 TFLOP/s bf16 tensor-core peak for one serving
+launch (B=4, H=10, S=4064, D=256, window 2048).  The source
+(``csrc/flash_attention.cu``) holds two designs, one per dtype.  bfloat16,
+the serving path, runs on the tensor cores: one block of two warpgroups
+per (batch*head, 128-row q tile), 64-row k and v tiles streamed by TMA
+through a 2-stage shared-memory ring, ``wgmma`` for Q.K^T and for P.V with
+P in registers, online softmax and O in registers.  float32 keeps the
+CUDA-core body (TF32 would break its 2e-5 tolerance).  Tiles wholly masked
+are never loaded; a ragged last tile reads zeros and is masked in the
+kernel.
 """
 from __future__ import annotations
 
@@ -49,8 +53,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos - k_pos < window; ``sm_scale`` defaults to 1/sqrt(D).  CPU
     tensors take the plain PyTorch version
     (:func:`~repro_torch.kernels.ref.attention_ref`); CUDA tensors launch
-    the kernel (float32 or bfloat16, D in 64/128/256, one S for q and kv),
-    or raise."""
+    the kernel (float32 or bfloat16, D in 64/128/256, one S for q and kv;
+    a bfloat16 view off a 16-byte boundary is copied first), or raise."""
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
@@ -72,6 +76,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ("q", q, q.dtype, (b, h, s, d)),
         ("k", k, q.dtype, (b, hkv, s, d)),
         ("v", v, q.dtype, (b, hkv, s, d))))
+    if q.dtype == torch.bfloat16:
+        # TMA reads from 16-byte boundaries: a view off one is copied first
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
