@@ -4,27 +4,34 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/metronome_fill.py``
 (``_fill_kernel``, launched by ``metronome_fill``).  ``core/fluid.py``
 reduces max-min fair rate sharing to a fixed point over a (flows x links)
 demand/route matrix; this kernel runs that fixed point for a whole batch
-of fill problems, one CTA per problem, with the per-round state in shared
-memory.  It is the ``backend='kernel'`` path of the fluid engine: the event
-loop's per-tick refill of dirty affinity components and the trace corpus.
+of fill problems.  It is the ``backend='kernel'`` path of the fluid engine:
+the event loop's per-tick refill of dirty affinity components and the
+trace corpus.
 
 What bounds it on the H100 is the round loop, not bytes or operations: a
 64-problem bucket of the trace corpus needs well under a microsecond of
-either, while every round is a chain of block barriers and reductions.  The source
-(``csrc/metronome_fill.cu``) keeps that chain in shared memory, stages the
-uint8 route matrix there when it fits (else reads it from L2), and leaves
-the loop as soon as the problem drains.  Padding is neutral as on the TPU:
-zero-demand flows never activate, zero-route unit-capacity links never
-saturate.
+either, while every round is a chain of barriers and reductions.  The
+source (``csrc/metronome_fill.cu``) keeps one water level per problem in
+place of a rate per flow, routes and saturated links as bitmasks, and link
+counts that are decremented when a flow freezes, so a round costs two
+block barriers; problems of at most 32 flows and 32 links take one warp
+each, with no block barrier at all.  It leaves the loop as soon as the
+problem drains and matches the plain version bit for bit.  Padding is
+neutral as on the TPU: zero-demand flows never activate, zero-route
+unit-capacity links never saturate.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from .. import _cuda_build
 from .ref import progressive_fill_ref
+
+# (max flows, opt-in shared-memory limit) by CUDA device index
+_LIMITS: Dict[int, Tuple[int, int]] = {}
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -35,6 +42,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.metronome_fill_smem_limit.restype = ctypes.c_longlong
     lib.metronome_fill_state_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.metronome_fill_state_bytes.restype = ctypes.c_longlong
+    lib.metronome_fill_max_flows.argtypes = []
+    lib.metronome_fill_max_flows.restype = ctypes.c_int
     lib.metronome_fill_error.argtypes = [ctypes.c_int]
     lib.metronome_fill_error.restype = ctypes.c_char_p
     return lib
@@ -42,7 +51,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def metronome_fill(demands: torch.Tensor, routes: torch.Tensor,
                    caps: torch.Tensor) -> torch.Tensor:
-    """Batched progressive-fill rates (B, F), one CTA per problem.
+    """Batched progressive-fill rates (B, F): one warp per problem of at
+    most 32 flows and 32 links, else one CTA per problem.
 
     ``demands`` (B, F) float32, ``routes`` (B, F, L) uint8 0/1, ``caps``
     (B, L) float32, contiguous and on one device.  CPU tensors take the
@@ -66,8 +76,15 @@ def metronome_fill(demands: torch.Tensor, routes: torch.Tensor,
         raise ValueError("metronome_fill needs at least one link")
     with torch.cuda.device(demands.device):
         lib = _cuda_build.load("metronome_fill", _bind)
+        index = demands.device.index
+        if index not in _LIMITS:
+            _LIMITS[index] = (lib.metronome_fill_max_flows(),
+                              lib.metronome_fill_smem_limit())
+        max_f, limit = _LIMITS[index]
+        if f > max_f:
+            raise ValueError(f"metronome_fill: takes at most {max_f} flows, "
+                             f"got F={f}")
         need = lib.metronome_fill_state_bytes(f, l)
-        limit = lib.metronome_fill_smem_limit()
         if limit >= 0 and need > limit:
             raise ValueError(
                 f"metronome_fill: {f} flows x {l} links need {need} bytes of "

@@ -12,17 +12,21 @@ the reference's names:
   * :func:`metronome_score_pairwise` — ``_score_kernel``: one link with a
     scalar capacity, the C = 1, L = 1 launch.
 
-What bounds it on the H100 is operations: four float32 operations per
+What bounds it on the H100 is operations: an add, a max and an add per
 (candidate, a, b, link, slot) term on inputs read once.  A block owns one
-candidate and a tile of 8 rotations of job A, stages base + A in shared
-memory, and each thread walks one rotation of job B with the tile's 8
-excess sums in registers.  The slot axis keeps its true length (S = 72
-= ``DI_PRE``; the TPU padded it to 128 lanes), and zero-demand
-unit-capacity padding links score exactly 100.
+candidate and a 24 x 24 tile of rotation pairs, stages ``base + A`` and
+``B - cap`` in shared memory by 16-byte loads, and each thread keeps a
+3 x 3 micro-tile of excess sums in registers; the links are split across
+up to four thread groups, so even one candidate keeps 9 blocks of 8 warps
+busy.  The slot axis keeps its true length (S = 72 = ``DI_PRE``,
+unrolled; the TPU padded it to 128 lanes), every max propagates NaN as the
+plain version's do, and zero-demand unit-capacity padding links score
+exactly 100.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -30,7 +34,8 @@ from .. import _cuda_build
 from .ref import (metronome_score_multilink_batch_ref,
                   metronome_score_multilink_ref, metronome_score_ref)
 
-_MAX_RB = 1024
+# largest slot count the kernel takes, by CUDA device index
+_MAX_SLOTS: Dict[int, int] = {}
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -38,6 +43,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.metronome_score_max_slots.argtypes = []
+    lib.metronome_score_max_slots.restype = ctypes.c_longlong
     lib.metronome_score_error.argtypes = [ctypes.c_int]
     lib.metronome_score_error.restype = ctypes.c_char_p
     return lib
@@ -58,9 +65,6 @@ def _launch(name: str, base: torch.Tensor, bank_a: torch.Tensor,
         ("bank_a", bank_a, torch.float32, (c, l, ra, s)),
         ("bank_b", bank_b, torch.float32, (c, l, rb, s)),
         ("capacities", caps, torch.float32, (c, l))))
-    if rb > _MAX_RB or 8 * s * 4 > 48 * 1024:
-        raise ValueError(f"{name}: supports Rb <= {_MAX_RB} and S <= 1536, "
-                         f"got Rb={rb}, S={s}")
     if min(c, l, s) < 1:
         raise ValueError(f"{name}: empty candidate, link or slot axis "
                          f"(C={c}, L={l}, S={s})")
@@ -69,6 +73,12 @@ def _launch(name: str, base: torch.Tensor, bank_a: torch.Tensor,
         return out
     with torch.cuda.device(base.device):
         lib = _cuda_build.load("metronome_score", _bind)
+        index = base.device.index
+        if index not in _MAX_SLOTS:
+            _MAX_SLOTS[index] = lib.metronome_score_max_slots()
+        if 0 <= _MAX_SLOTS[index] < s:
+            raise ValueError(f"{name}: supports S <= {_MAX_SLOTS[index]}, "
+                             f"got S={s}")
         rc = lib.metronome_score_launch(
             base.data_ptr(), bank_a.data_ptr(), bank_b.data_ptr(),
             caps.data_ptr(), out.data_ptr(), c, l, ra, rb, s,

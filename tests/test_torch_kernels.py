@@ -181,6 +181,61 @@ class TestScorePlain:
         assert np.all(only_pad == 100.0)
 
 
+def _nan_problem(c, l, ra=6, rb=8, s=72):
+    """A link of zero capacity (link 1) whose demand is zero for the even
+    rotations of A and of B: its excess fraction is 0 / 0 = NaN exactly at
+    (even a, even b), +inf elsewhere (score 0)."""
+    base, bank_a, bank_b, caps = _score_problem(7, c, l, ra, rb)
+    base[:, 1] = 0.0
+    bank_a[:, 1, 0::2] = 0.0
+    bank_b[:, 1, 0::2] = 0.0
+    caps[:, 1] = 0.0
+    return base, bank_a, bank_b, caps
+
+
+class TestScoreNaN:
+    """The reference's ``jnp.max`` / ``jnp.maximum`` keep a NaN excess
+    fraction, and so do the port's plain versions (``amax``,
+    ``clamp_min``): NaN for NaN, at the same (c, a, b)."""
+
+    @staticmethod
+    def _same(got, *wants):
+        got = np.asarray(got)
+        assert np.isnan(got).any() and not np.isnan(got).all()
+        for want in wants:
+            want = np.asarray(want)
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            np.testing.assert_allclose(got, want, atol=TOL)
+
+    def test_batch(self):
+        base, bank_a, bank_b, caps = _nan_problem(3, 3)
+        got = ops.score_multilink_batch(base, bank_a, bank_b, caps,
+                                        device="cpu")
+        self._same(got,
+                   jref.metronome_score_multilink_batch_ref(
+                       base, bank_a, bank_b, caps),
+                   jops.score_multilink_batch(base, bank_a, bank_b, caps,
+                                              interpret=True))
+        assert np.isnan(got[:, 0::2, 0::2]).all()
+
+    def test_multilink(self):
+        base, bank_a, bank_b, caps = _nan_problem(1, 2)
+        got = ops.score_multilink(base[0], bank_a[0], bank_b[0], caps[0],
+                                  device="cpu")
+        self._same(got,
+                   jref.metronome_score_multilink_ref(
+                       base[0], bank_a[0], bank_b[0], caps[0]),
+                   jops.score_multilink(base[0], bank_a[0], bank_b[0],
+                                        caps[0], interpret=True))
+
+    def test_pairwise(self):
+        base, bank_a, bank_b, _ = _nan_problem(1, 2)
+        args = (base[0, 1], bank_a[0, 1], bank_b[0, 1], 0.0)
+        got = ops.score_pairwise(*args, device="cpu")
+        self._same(got, jref.metronome_score_ref(*args),
+                   jops.score_pairwise(*args, interpret=True))
+
+
 class TestDispatch:
     def test_cuda_request_without_a_card_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
