@@ -27,15 +27,29 @@ JSON line with its numbers and seconds:
                 tokens; prefill through the flash-attention and RG-LRU
                 kernels, decode steps reported to the stop-and-wait
                 controller; ``forward`` held against prefill's logits
+  train         RecurrentGemma-2B at full width and depth trained by
+                ``build_train_step`` (random weights from a seed, bf16,
+                float32 AdamW moments, remat on): 2 x 4096-token sequences
+                of ``SyntheticLM`` a step in 2 micro-batches, one warm-up
+                and 4 timed steps through ``CommGate`` and
+                ``IterationReporter``; every parameter leaf must get a
+                non-zero gradient, the warm-up step's loss change must be
+                near its first-order prediction, the launch counts must
+                match remat over every group and tail layer, and 4 steps
+                on a repeated batch must lower its loss; one step under
+                ``torch.profiler``
   kernels       each kernel wrapper against its plain PyTorch version on the
                 very inputs the paths above gave it, plus synthetic cases
                 (padding, a wide candidate batch, a zero-capacity link whose
                 scores must be NaN where the plain version's are,
                 float32/bf16, causal, windowed, bidirectional and ragged
-                attention at head dims 64/128/256, ragged RG-LRU shapes);
-                the fill must match bit for bit.  CUDA-event times around
-                the wrappers, device-only times per launch of the fill and
-                score kernels (``torch.profiler``), bounds and the
+                attention at head dims 64/128/256, ragged RG-LRU shapes,
+                the RG-LRU backward at the training shape and a ragged
+                one); the fill and the RG-LRU backward must match bit for
+                bit.  CUDA-event times around
+                the wrappers, device-only times per launch
+                (``torch.profiler``) of the fill and score kernels and of
+                the main paths' flash and RG-LRU launches, bounds and the
                 library's time: ``torch.cdist`` for the score, and for
                 attention ``scaled_dot_product_attention``, which the bf16
                 flash kernel must beat at the serving shape
@@ -91,11 +105,18 @@ from repro_torch.kernels.metronome_fill import metronome_fill  # noqa: E402
 from repro_torch.kernels.metronome_score import (  # noqa: E402
     metronome_score_multilink, metronome_score_multilink_batch,
     metronome_score_pairwise)
-from repro_torch.kernels.rg_lru import rg_lru_pallas  # noqa: E402
+from repro_torch.kernels.rg_lru import (_rg_lru_pallas_bwd,  # noqa: E402
+                                        rg_lru_pallas)
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch.serve import (make_prompts,  # noqa: E402
                                       serve_requests)
-from repro_torch.models import forward, init_model, param_count  # noqa: E402
-from repro_torch.runtime.comm_gate import IterationReporter  # noqa: E402
+from repro_torch.models import (forward, init_model,  # noqa: E402
+                                loss_fn, param_count)
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime.comm_gate import (CommGate,  # noqa: E402
+                                           IterationReporter)
+from repro_torch.runtime.steps import (build_train_step,  # noqa: E402
+                                       init_train_state)
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -143,16 +164,36 @@ REDESIGNED = {
     "rg_lru_pallas": dict(
         design="one warp per 32 columns, 3-stage cp.async ring",
         ptxas_entries=("rg_lru_kernel",)),
+    "_rg_lru_pallas_bwd": dict(
+        design="the adjoint walked from the last step: one warp per 32 "
+               "columns, 3-stage cp.async ring of g, a shifted +1 and y "
+               "shifted -1 (72 KB dynamic shared memory)",
+        ptxas_entries=("rg_lru_bwd_kernel",)),
 }
 
-# substrings of each Metronome kernel's name in a profiler trace
+# substrings of each kernel's name in a profiler trace
 FILL_KERNELS = ("fill_warp_kernel", "fill_block_kernel")
 SCORE_KERNELS = ("score_kernel",)
+FLASH_KERNELS = ("flash_fwd_",)
 
 SCORE_WRAPPERS = (metronome_score_multilink_batch, metronome_score_multilink,
                   metronome_score_pairwise)
-MODEL_WRAPPERS = (flash_attention_fwd, rg_lru_pallas)
+MODEL_WRAPPERS = (flash_attention_fwd, rg_lru_pallas, _rg_lru_pallas_bwd)
 ALL_WRAPPERS = (metronome_fill,) + SCORE_WRAPPERS + MODEL_WRAPPERS
+
+
+# the training traffic: full-width RecurrentGemma-2B, train_4k's sequence
+# length, 2 sequences a step in 2 micro-batches (gradient accumulation),
+# the reference's AdamW defaults.  The loss check repeats the step-0 batch
+# with no warm-up at 3e-5: the first step's witness (first_step_witness)
+# measures how far past first order a no-warm-up step at the defaults'
+# 3e-4 would be (PERF.md, Findings)
+TRAIN = dict(arch="recurrentgemma-2b", seq=4096, batch=2, n_micro=2,
+             steps=4, seed=0, check_lr=3e-5)
+# the warm-up step's loss change on its batch over its first-order
+# prediction g . (p1 - p0): a gradient wrong on much of the model, or a
+# step too long for first order, moves it far off 1
+FIRST_STEP_RATIO = (0.5, 1.5)
 
 # the serving traffic: full-width RecurrentGemma-2B, max_len 4096 (a
 # multiple of attn_chunk, so repro.launch.serve could serve the same), prompts
@@ -386,7 +427,7 @@ class Recorder:
     back, which ends in a synchronisation; the model ops only enqueue."""
 
     NAMES = ("progressive_fill", "score_multilink", "score_multilink_batch",
-             "flash_attention", "rg_lru")
+             "flash_attention", "rg_lru", "rg_lru_bwd")
 
     def __init__(self, keep: int = 1) -> None:
         self.keep = keep
@@ -439,34 +480,79 @@ def counted(launches: Dict[str, int]):
         w.launches = 0
     yield
     for w in ALL_WRAPPERS:
-        launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
+        name = w.__name__
+        launches[name] = launches.get(name, 0) + w.launches
 
 
-def device_busy_share(fn, note: str) -> dict:
-    """Run ``fn`` under ``torch.profiler`` and return the device's busy
-    time (kernels and copies, one stream, so no overlap) over the wall
-    time; "not measured" where the trace holds no device event."""
+def _profiled(fn, record_shapes: bool = False):
+    """Run ``fn`` under ``torch.profiler``: (profile, wall µs, device busy
+    µs (kernels and copies, one stream, so no overlap), device µs by
+    kernel name)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         fn()
         _sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us = 0.0
-    by_name: Dict[str, float] = {}
+    by_kernel: Dict[str, float] = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             busy_us += ev.self_device_time_total
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.self_device_time_total)
+            by_kernel[ev.name] = (by_kernel.get(ev.name, 0.0)
+                                  + ev.self_device_time_total)
+    return prof, wall_us, busy_us, by_kernel
+
+
+def _busy_summary(wall_us: float, busy_us: float,
+                  by_kernel: Dict[str, float], note: str) -> dict:
     if busy_us <= 0.0:
         return {"busy_share": "not measured", "wall_s": wall_us / 1e6}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     return {"busy_share": busy_us / wall_us, "busy_s": busy_us / 1e6,
             "wall_s": wall_us / 1e6,
-            "top_device_us": {k[:60]: v for k, v in top},
-            "note": note}
+            "top_device_us": {k[:60]: v for k, v in top}, "note": note}
+
+
+def device_busy_share(fn, note: str) -> dict:
+    """The device's busy time over the wall time while ``fn`` runs, and
+    its six largest kernels; "not measured" where the trace holds no
+    device event."""
+    _, wall_us, busy_us, by_kernel = _profiled(fn)
+    return _busy_summary(wall_us, busy_us, by_kernel, note)
+
+
+def train_step_profile(fn, seq: int, vocab: int) -> dict:
+    """:func:`device_busy_share` of one training step, plus device time by
+    source: the LM head's float32 products (``aten::mm`` with a
+    vocab-sized dimension), the flash backward's recompute through
+    ``attention_ref`` (``aten::bmm`` over (seq, seq) scores), the other
+    products, and the port's kernels."""
+    prof, wall_us, busy_us, by_kernel = _profiled(fn, record_shapes=True)
+    out = _busy_summary(wall_us, busy_us, by_kernel,
+                        "one step on the repeated batch under torch.profiler")
+    if busy_us <= 0.0:
+        return out
+    ops = {"lm_head_mm": 0.0, "attention_ref_bmm": 0.0, "other_mm_bmm": 0.0}
+    for row in prof.key_averages(group_by_input_shape=True):
+        if row.key not in ("aten::mm", "aten::bmm"):
+            continue
+        dims = [d for shape in row.input_shapes for d in shape]
+        if vocab in dims:
+            ops["lm_head_mm"] += row.device_time_total
+        elif row.key == "aten::bmm" and dims.count(seq) >= 2:
+            ops["attention_ref_bmm"] += row.device_time_total
+        else:
+            ops["other_mm_bmm"] += row.device_time_total
+    for name, keys in (("flash_fwd", FLASH_KERNELS),
+                       ("rg_lru", ("rg_lru_kernel",)),
+                       ("rg_lru_bwd", ("rg_lru_bwd_kernel",))):
+        ops[name] = sum(us for k, us in by_kernel.items()
+                        if any(key in k for key in keys))
+    ops["rest"] = busy_us - sum(ops.values())
+    out["device_ms_by_source"] = {k: v / 1e3 for k, v in ops.items()}
+    return out
 
 
 def _sync() -> None:
@@ -490,28 +576,38 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, kernels: Sequence[str], reps: int = 20) -> dict:
+def device_us(fn, kernels: Sequence[str], reps: int = 200) -> dict:
     """Device-only time per launch of the kernels whose names hold one of
     ``kernels``, over ``reps`` calls of ``fn``: their CUDA time under
-    ``torch.profiler`` over the launches the trace holds (it may drop one
-    at its edge).  Fails where the profiler sees no device time for them."""
+    ``torch.profiler`` over their launches that the trace holds.  A trace
+    loses the first records of a burst of launches, more of them the
+    longer the process has run (PERF.md, PR 15), so the burst is long
+    and ``device_traced`` reports the share of the launches it holds.
+    Fails, naming the device events the trace does hold, where it holds
+    none of these kernels'."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _sync()
+    ran = sum(w.launches for w in ALL_WRAPPERS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         _sync()
+    ran = sum(w.launches for w in ALL_WRAPPERS) - ran
     total_us, count = 0.0, 0
+    seen: Dict[str, int] = {}
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                any(k in ev.key for k in kernels):
-            total_us += ev.self_device_time_total
-            count += ev.count
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            seen[ev.key[:60]] = ev.count
+            if any(k in ev.key for k in kernels):
+                total_us += ev.self_device_time_total
+                count += ev.count
     check(total_us > 0.0 and count > 0,
-          f"torch.profiler saw no device time for {kernels}")
-    return dict(us_per_launch=total_us / count, launches=count)
+          f"torch.profiler holds none of {ran} launches of {kernels}: the "
+          f"trace's device events {seen}")
+    return dict(device_us_per_launch=total_us / count,
+                device_traced=count / ran)
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +841,7 @@ def phase_serve(launches, rec: Recorder) -> dict:
     for w in MODEL_WRAPPERS:
         w.launches = 0
     with torch.inference_mode():
-        full = forward(params, cfg, prompts[0])
+        full, _ = forward(params, cfg, prompts[0])
         fwd_err = float((full[:, -1] - res.prefill_logits[0][:, 0])
                         .abs().max())
         check(bool(torch.isfinite(full[:, -1]).all()),
@@ -788,6 +884,168 @@ def phase_serve(launches, rec: Recorder) -> dict:
                forward_launches=fwd_launches, device_busy=busy)
     emit("serve", **out)
     return out
+
+
+def _train_batch(ds: SyntheticLM, step: int) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=DEVICE)
+            for k, v in ds.batch_at(step).items()}
+
+
+def _train_flops(cfg, n_params_less_embed: int, tokens: int,
+                 seqs: int) -> int:
+    """Model FLOPs of one training step, no remat: 6 N' T for the weights
+    (N' the parameters less the embedding table) plus, per sequence and
+    attention layer, 12 D H over the unmasked (q, k) pairs (Q.K^T and P.V,
+    forward and backward)."""
+    n_attn = cfg.n_layers // 3
+    pairs = _unmasked_pairs(TRAIN["seq"], True, cfg.window)
+    return (6 * n_params_less_embed * tokens
+            + 12 * cfg.head_dim * cfg.n_heads * pairs * seqs * n_attn)
+
+
+def phase_train(launches, rec: Recorder) -> dict:
+    torch.cuda.empty_cache()  # the serving model is gone with its phase
+    cfg = model_configs.get_config(TRAIN["arch"])
+    check(cfg.remat and cfg.remat_policy == "nothing",
+          "train: the config does not recompute every group")
+    n_micro, steps = TRAIN["n_micro"], TRAIN["steps"]
+    opt_cfg = AdamWConfig()  # the reference's defaults, float32 moments
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN["seed"])
+    state = init_train_state(cfg, opt_cfg, gen, DEVICE)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(state.params)
+    n_embed = state.params["embed"].numel()
+    ds = SyntheticLM(cfg.vocab, TRAIN["seq"], TRAIN["batch"],
+                     seed=TRAIN["seed"])
+    step_fn = build_train_step(cfg, opt_cfg, n_micro)
+    ctl = CountingController()
+    job = f"train-{TRAIN['arch']}"
+    gate = CommGate(ctl, job=job)
+    reporter = IterationReporter(ctl, job, priority=1)
+
+    losses, grad_norms, step_s = [], [], []
+
+    def one_step(step: int) -> None:
+        nonlocal state
+        batch = _train_batch(ds, step)
+        gate.wait_for_slot()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the device
+        grad_norms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t)
+        reporter.report(step_s[-1])
+
+    p0 = [p.clone() for p in _leaves(state.params)]
+    one_step(0)  # warm-up; its gradients are checked through the moments
+    # m = (1 - b1) * clipped gradient after the first step
+    zero = [i for i, m in enumerate(_leaves(state.opt["m"]))
+            if not float(torch.linalg.vector_norm(m)) > 0.0]
+    check(not zero, f"train: {len(zero)} parameter leaves got a zero "
+                    f"gradient in the first step (leaf indices {zero})")
+    witness = first_step_witness(state, p0, _train_batch(ds, 0), cfg,
+                                 opt_cfg, losses[0], grad_norms[0], n_micro)
+    del p0
+    torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
+    path: Dict[str, int] = {}
+    with counted(path), rec.active():
+        for step in range(1, 1 + steps):
+            one_step(step)
+    for name, n in path.items():
+        launches[name] = launches.get(name, 0) + n
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + grad_norms),
+          f"train: a loss or grad norm is not finite: {losses} {grad_norms}")
+    n_attn = cfg.n_layers // 3
+    n_rg = 2 * n_attn + cfg.n_layers % 3
+    want = {"flash_attention_fwd": 2 * n_attn * n_micro * steps,
+            "rg_lru_pallas": 2 * n_rg * n_micro * steps,
+            "_rg_lru_pallas_bwd": n_rg * n_micro * steps}
+    for name, n in want.items():
+        check(path[name] == n,
+              f"train: {path[name]} {name} launches, expected {n}")
+    check(ctl.reports == 1 + steps,
+          f"train: the controller received {ctl.reports} reports, expected "
+          f"{1 + steps}")
+
+    # the loss check: the step-0 batch again, no warm-up
+    check_fn = build_train_step(cfg, AdamWConfig(lr=TRAIN["check_lr"],
+                                                 warmup_steps=0), n_micro)
+    batch0 = _train_batch(ds, 0)
+    check_losses = []
+    for _ in range(4):
+        state, metrics = check_fn(state, batch0)
+        check_losses.append(float(metrics["loss"]))
+    check(all(math.isfinite(x) for x in check_losses),
+          f"train: repeated-batch losses {check_losses}")
+    for w in MODEL_WRAPPERS:
+        w.launches = 0
+    busy = train_step_profile(lambda: check_fn(state, batch0),
+                              TRAIN["seq"], cfg.vocab)
+    for w in MODEL_WRAPPERS:
+        w.launches = 0
+
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    med = statistics.median(step_s[1:])
+    flops = _train_flops(cfg, n_params - n_embed, tokens, TRAIN["batch"])
+    timed = sorted(1e3 * t for t in step_s[1:])
+    out = dict(arch=cfg.name, params=n_params, dtype=str(cfg.dtype),
+               moment_dtype=str(opt_cfg.moment_dtype), remat=cfg.remat,
+               seq=TRAIN["seq"], batch=TRAIN["batch"], n_micro=n_micro,
+               init_seconds=init_s, warmup_step_ms=1e3 * step_s[0],
+               step_ms=timed, step_ms_median=1e3 * med,
+               step_ms_p90=timed[int(0.9 * (len(timed) - 1))],
+               tokens_per_s=tokens / med, losses=losses,
+               grad_norms=grad_norms, check_lr=TRAIN["check_lr"],
+               repeated_batch_losses=check_losses, first_step=witness,
+               peak_memory_bytes=peak, model_flops_per_step=flops,
+               mfu=flops / (med * PEAK_BF16_OPS_PER_S),
+               launches={k: path[k] for k in want},
+               launches_per_step={k: path[k] // steps for k in want},
+               controller_reports=ctl.reports, device_busy=busy)
+    del state
+    torch.cuda.empty_cache()
+    emit("train", **out)
+    check(check_losses[-1] < check_losses[0],
+          f"train: the repeated batch's loss did not fall: {check_losses}")
+    lo, hi = FIRST_STEP_RATIO
+    check(witness["predicted_dloss"] < 0.0
+          and lo <= witness["ratio"] <= hi,
+          f"train: the first step's loss change is not its first-order "
+          f"prediction within {FIRST_STEP_RATIO}: {witness}")
+    return out
+
+
+def first_step_witness(state, p0: List[torch.Tensor], batch, cfg, opt_cfg,
+                       loss0: float, gnorm: float, n_micro: int) -> dict:
+    """The first step's loss change on its own batch against its
+    first-order prediction g . (p1 - p0), the gradient g read off the
+    first moments (one step from zero leaves m = (1 - b1) * clip * g) and
+    p0 the parameters before the step.  Adam's first step moves every
+    element that bf16 can move by about lr against its gradient's sign, so
+    the prediction is about -lr times ||g||_1 over the moved elements:
+    ``moved_share`` and ``grad_l1`` say how large that is."""
+    g_scale = (1.0 - opt_cfg.b1) * min(1.0, opt_cfg.grad_clip / gnorm)
+    pred, l1, moved, n = 0.0, 0.0, 0, 0
+    for p1, q, m in zip(_leaves(state.params), p0, _leaves(state.opt["m"])):
+        d = p1.float() - q.float()
+        pred += float(torch.dot(m.flatten(), d.flatten()))
+        l1 += float(m.abs().sum())
+        moved += int(torch.count_nonzero(d))
+        n += d.numel()
+        del d
+    b = batch["tokens"].shape[0] // n_micro
+    with torch.no_grad():
+        loss1 = sum(float(loss_fn(state.params, cfg, {
+            k: v[i * b:(i + 1) * b] for k, v in batch.items()})[0])
+            for i in range(n_micro)) / n_micro
+    pred /= g_scale
+    return dict(loss_before=loss0, loss_after=loss1,
+                observed_dloss=loss1 - loss0, predicted_dloss=pred,
+                ratio=(loss1 - loss0) / pred if pred else float("nan"),
+                moved_share=moved / n, grad_l1=l1 / g_scale)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -835,8 +1093,7 @@ def _fill_case(inputs: List[list]) -> dict:
     bound_ms, bound_by = _bound(nbytes, n_ops)
     return dict(launches_timed=len(dev),
                 shapes=sorted({tuple(x[1].shape) for x in dev}),
-                max_abs_err=err, bit_exact=err == 0.0, ms=ms,
-                device_us_per_launch=device["us_per_launch"],
+                max_abs_err=err, bit_exact=err == 0.0, ms=ms, **device,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, operations=n_ops)
 
@@ -859,8 +1116,8 @@ def _score_library(base, bank_a, bank_b, caps) -> torch.Tensor:
 
 
 def _score_case(fn, plain, args: Sequence[np.ndarray], scalar=None) -> dict:
-    """Kernel vs plain score on one launch's inputs; for the batched
-    launch, also the ``torch.cdist`` yardstick."""
+    """Kernel vs plain score on one launch's inputs, and the
+    ``torch.cdist`` yardstick."""
     dev = _dev(args, [np.float32] * len(args))
     extra = () if scalar is None else (scalar,)
     got = fn(*dev, *extra)
@@ -872,13 +1129,21 @@ def _score_case(fn, plain, args: Sequence[np.ndarray], scalar=None) -> dict:
     ms = time_ms(lambda: fn(*dev, *extra))
     device = device_us(lambda: fn(*dev, *extra), SCORE_KERNELS)
     plain_ms = time_ms(lambda: plain(*dev, *extra))
-    library = {}
+    # the library yardstick computes the batched score; the C = 1 (and
+    # L = 1) launches take it on a leading axis of one
     if fn is metronome_score_multilink_batch:
-        lib = _score_library(*dev)
-        library = dict(
-            library_ms=time_ms(lambda: _score_library(*dev)),
-            library="torch.cdist(p=1) over the C*L batches + elementwise",
-            library_max_abs_err=float((lib - want).abs().max()))
+        lib_args = dev
+    elif fn is metronome_score_multilink:
+        lib_args = [t[None] for t in dev]
+    else:
+        lib_args = [dev[0][None, None], dev[1][None, None],
+                    dev[2][None, None],
+                    torch.full((1, 1), scalar, device=DEVICE)]
+    lib = _score_library(*lib_args).reshape(want.shape)
+    library = dict(
+        library_ms=time_ms(lambda: _score_library(*lib_args)),
+        library="torch.cdist(p=1) over the C*L batches + elementwise",
+        library_max_abs_err=float((lib - want).abs().max()))
     base, bank_a, bank_b = args[:3]
     s = base.shape[-1]
     ra, rb = bank_a.shape[-2], bank_b.shape[-2]
@@ -891,8 +1156,7 @@ def _score_case(fn, plain, args: Sequence[np.ndarray], scalar=None) -> dict:
     bound_ms, bound_by = _bound(nbytes, n_ops)
     return dict(shape={"base": list(base.shape), "bank_a": list(bank_a.shape),
                        "bank_b": list(bank_b.shape)},
-                max_abs_err=err, ms=ms,
-                device_us_per_launch=device["us_per_launch"],
+                max_abs_err=err, ms=ms, **device,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, operations=n_ops, **library)
 
@@ -960,8 +1224,10 @@ def _sdpa(q, k, v, causal: bool, window: int) -> torch.Tensor:
     return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def _flash_case(q, k, v, causal: bool, window: int) -> dict:
-    """Flash kernel vs plain attention on one launch's inputs."""
+def _flash_case(q, k, v, causal: bool, window: int,
+                main_path: bool = False) -> dict:
+    """Flash kernel vs plain attention on one launch's inputs; a main
+    path's launch also gets its device-only time."""
     got = flash_attention_fwd(q, k, v, causal=causal, window=window)
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     _sync()
@@ -986,6 +1252,10 @@ def _flash_case(q, k, v, causal: bool, window: int) -> dict:
                                                  window=window),
                        reps=5, warmup=1)
     library_ms = time_ms(lambda: _sdpa(q, k, v, causal, window))
+    device = {}
+    if main_path:
+        device = device_us(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, window=window), FLASH_KERNELS)
     b, h, s, d = q.shape
     pairs = _unmasked_pairs(s, causal, window)
     n_ops = b * h * pairs * 4 * d  # q.k and p.v, a multiply and an add each
@@ -997,14 +1267,15 @@ def _flash_case(q, k, v, causal: bool, window: int) -> dict:
     return dict(shape={"q": list(q.shape), "kv": list(k.shape)},
                 dtype=str(q.dtype), causal=causal, window=window,
                 max_abs_err=err, tolerance=tol, normwise_err=rel_l2,
-                ms=ms, plain_ms=plain_ms,
+                ms=ms, **device, plain_ms=plain_ms,
                 library_ms=library_ms, library_max_abs_err=lib_err,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                 operations=n_ops, unmasked_pairs_per_head=pairs)
 
 
-def _rg_lru_case(a, x) -> dict:
-    """RG-LRU kernel vs the plain loop on one launch's inputs."""
+def _rg_lru_case(a, x, main_path: bool = False) -> dict:
+    """RG-LRU kernel vs the plain loop on one launch's inputs; a main
+    path's launch also gets its device-only time."""
     got = rg_lru_pallas(a, x)
     want = ref.rg_lru_ref(a, x)
     _sync()
@@ -1013,13 +1284,41 @@ def _rg_lru_case(a, x) -> dict:
     check(bool((diff <= RG_LRU_TOL + RG_LRU_TOL * want.abs()).all()),
           f"RG-LRU kernel {tuple(x.shape)}: max abs err {err}")
     ms = time_ms(lambda: rg_lru_pallas(a, x))
+    device = {}
+    if main_path:
+        device = device_us(lambda: rg_lru_pallas(a, x), ("rg_lru_kernel",))
     plain_ms = time_ms(lambda: ref.rg_lru_ref(a, x), reps=3, warmup=1)
     nbytes = 3 * x.numel() * 4
     bound_ms, bound_by = _bound(nbytes, 2 * x.numel())
     return dict(shape=list(x.shape), max_abs_err=err,
-                bit_exact=bool(torch.equal(got, want)), ms=ms,
+                bit_exact=bool(torch.equal(got, want)), ms=ms, **device,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, operations=2 * x.numel())
+
+
+def _rg_lru_bwd_case(a, y, g) -> dict:
+    """RG-LRU backward kernel vs the plain reverse loop on one launch's
+    inputs; it must match bit for bit."""
+    da, dx = _rg_lru_pallas_bwd(a, y, g)
+    da_want, dx_want = ref.rg_lru_bwd_ref(a, y, g)
+    _sync()
+    err = max(float((da - da_want).abs().max()),
+              float((dx - dx_want).abs().max()))
+    check(torch.equal(da, da_want) and torch.equal(dx, dx_want),
+          f"RG-LRU backward kernel {tuple(g.shape)}: not bit for bit with "
+          f"the plain reverse loop, max abs err {err}")
+    ms = time_ms(lambda: _rg_lru_pallas_bwd(a, y, g))
+    device = device_us(lambda: _rg_lru_pallas_bwd(a, y, g),
+                       ("rg_lru_bwd_kernel",))
+    plain_ms = time_ms(lambda: ref.rg_lru_bwd_ref(a, y, g), reps=3,
+                       warmup=1)
+    nbytes = 5 * g.numel() * 4  # g, a, y read; dx, da written
+    n_ops = 3 * g.numel()  # a multiply and an add for d, a multiply for da
+    bound_ms, bound_by = _bound(nbytes, n_ops)
+    return dict(shape=list(g.shape), max_abs_err=err, bit_exact=True, ms=ms,
+                **device, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                operations=n_ops)
 
 
 def _qkv(seed: int, b: int, h: int, hkv: int, s: int, d: int, dtype):
@@ -1035,14 +1334,26 @@ def _gates(seed: int, shape: Tuple[int, ...]):
     return a, torch.randn(shape, generator=g, device=DEVICE)
 
 
-def model_kernel_cases(serve: Recorder) -> Dict[str, dict]:
-    """The flash and RG-LRU kernels on the serve path's first launches,
-    then on synthetic cases."""
+def model_kernel_cases(serve: Recorder, train: Recorder) -> Dict[str, dict]:
+    """The flash and RG-LRU kernels on the serve and train paths' first
+    launches, then on synthetic cases."""
     cases: Dict[str, dict] = {}
     q, k, v, causal, window = serve.inputs("flash_attention")[0]
-    cases["flash_serve"] = _flash_case(q, k, v, bool(causal), int(window))
+    cases["flash_serve"] = _flash_case(q, k, v, bool(causal), int(window),
+                                      main_path=True)
     a, x = serve.inputs("rg_lru")[0]
-    cases["rg_lru_serve"] = _rg_lru_case(a, x)
+    cases["rg_lru_serve"] = _rg_lru_case(a, x, main_path=True)
+    q, k, v, causal, window = train.inputs("flash_attention")[0]
+    cases["flash_train"] = _flash_case(q, k, v, bool(causal), int(window),
+                                      main_path=True)
+    a, x = train.inputs("rg_lru")[0]
+    cases["rg_lru_train"] = _rg_lru_case(a, x, main_path=True)
+    a, y, g = train.inputs("rg_lru_bwd")[0]
+    cases["rg_lru_bwd_train"] = _rg_lru_bwd_case(a, y, g)
+    a, x = _gates(12, (2, 1001, 1000))  # S % 64 = 41, W % 32 = 8
+    y = ref.rg_lru_ref(a, x)
+    cases["rg_lru_bwd_ragged_2x1001x1000"] = _rg_lru_bwd_case(
+        a, y, torch.randn_like(y))
     for d in (64, 128):
         for g in (1, 4):
             cases[f"flash_f32_causal_d{d}_g{g}"] = _flash_case(
@@ -1090,7 +1401,7 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
 
 
 def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
-                  serve: Recorder) -> dict:
+                  serve: Recorder, train: Recorder) -> dict:
     cases: Dict[str, dict] = {}
     # the main path's fill launches all take the one-word route masks
     links = {rec_name: sorted({shape[1][2] for shape in rec.counts[
@@ -1148,9 +1459,10 @@ def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
         if name.startswith("score_") and "max_abs_err" in case:
             check(case["max_abs_err"] <= SCORE_TOL,
                   f"{name}: kernel vs plain {case['max_abs_err']}")
-    cases.update(model_kernel_cases(serve))
+    cases.update(model_kernel_cases(serve, train))
     emit("kernels", tolerance={
         "fill": 0.0, "score": SCORE_TOL, "rg_lru": RG_LRU_TOL,
+        "rg_lru_bwd": 0.0,
         "flash": {str(k): v for k, v in FLASH_TOL.items()},
         "flash_bf16_normwise": FLASH_NORM_TOL}, cases=cases)
     return cases
@@ -1171,6 +1483,7 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
     score = cases["score_multilink_batch_planner0"]
     flash = cases["flash_serve"]
     rg = cases["rg_lru_serve"]
+    rg_bwd = cases["rg_lru_bwd_train"]
     score_err = max(v["max_abs_err"] for n, v in cases.items()
                     if n.startswith("score_") and "max_abs_err" in v)
     fill_err = max(v["max_abs_err"] for n, v in cases.items()
@@ -1217,7 +1530,10 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
              bound_by=flash["bound_by"], library_ms=flash["library_ms"],
              library="torch.nn.functional.scaled_dot_product_attention",
-             shape=flash["shape"], **_redesign("flash_attention_fwd", ptxas)),
+             shape=flash["shape"],
+             device_us_per_launch={n: v for n, v in device_us.items()
+                                   if n.startswith("flash_")},
+             **_redesign("flash_attention_fwd", ptxas)),
         dict(name="rg_lru_pallas", route="cuda",
              source="src/repro_torch/kernels/csrc/rg_lru.cu",
              replaces="src/repro/kernels/rg_lru.py:25",
@@ -1228,7 +1544,26 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
              library="none: no single PyTorch call computes a first-order "
                      "linear recurrence",
              shape=rg["shape"], bit_exact=rg["bit_exact"],
+             device_us_per_launch={n: v for n, v in device_us.items()
+                                   if n.startswith("rg_lru_")
+                                   and "_bwd_" not in n},
              **_redesign("rg_lru_pallas", ptxas)),
+        dict(name="_rg_lru_pallas_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/rg_lru.cu",
+             replaces="src/repro/kernels/rg_lru.py:25",
+             note="the adjoint of that kernel's recurrence; the TPU "
+                  "reference has no backward kernel (XLA differentiates "
+                  "its associative_scan, src/repro/models/recurrent.py:85)",
+             launches=launches.get("_rg_lru_pallas_bwd", 0),
+             max_abs_err=rg_bwd["max_abs_err"], ms=rg_bwd["ms"],
+             plain_ms=rg_bwd["plain_ms"], bound_ms=rg_bwd["bound_ms"],
+             bound_by=rg_bwd["bound_by"], library_ms=None,
+             library="none: no single PyTorch call computes the adjoint of "
+                     "a linear recurrence",
+             shape=rg_bwd["shape"], bit_exact=rg_bwd["bit_exact"],
+             device_us_per_launch={n: v for n, v in device_us.items()
+                                   if n.startswith("rg_lru_bwd_")},
+             **_redesign("_rg_lru_pallas_bwd", ptxas)),
     ]
     return {"kernels": kernels}
 
@@ -1255,7 +1590,9 @@ def main() -> int:
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_planner(launches, planner)
     phase_serve(launches, serve)
-    cases = phase_kernels(corpus, loop, planner, serve)
+    train = Recorder()
+    phase_train(launches, train)
+    cases = phase_kernels(corpus, loop, planner, serve, train)
     print(json.dumps(kernel_summary(launches, cases, ptxas)), flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
     print(info["nvidia_smi"], flush=True)

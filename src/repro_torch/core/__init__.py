@@ -13,12 +13,13 @@
 #   trace     — Gavel-style workload generator
 #   experiment— declarative Scenario/Policy API + sweep grid runner
 #   results   — typed, schema-versioned experiment results (JSON)
+#   harness   — legacy run_experiment/run_trace_experiment shims
 from . import (baselines, cluster, contention, controller, events, experiment,
-               framework, geometry, results, rotation, scheduler,
+               framework, geometry, harness, results, rotation, scheduler,
                scoring, simulator, topology, trace, workload)
 
 __all__ = [
     "baselines", "cluster", "contention", "controller", "events",
-    "experiment", "framework", "geometry", "results", "rotation",
+    "experiment", "framework", "geometry", "harness", "results", "rotation",
     "scheduler", "scoring", "simulator", "topology", "trace", "workload",
 ]

@@ -1,17 +1,18 @@
 """Public entry points of the port's kernels, with device dispatch.
 
-The model ops (``flash_attention``, ``rg_lru``) take tensors and dispatch
-on their device: the kernel on a CUDA device (or raise), the plain version
-from :mod:`ref` on the CPU.  Each Metronome op takes host arrays (any float dtype; ``core`` builds float64), casts
-them to the kernels' types here — float32, and uint8 for the 0/1 route
-matrix — copies them to ``device`` once, and dispatches on the tensors'
-device: on a CUDA device the hand-written kernel runs (or raises), on the
-CPU its plain PyTorch version from :mod:`ref`.  Results come back as numpy
-float32 arrays, as the JAX package's ops return them.
+The model ops (``flash_attention``, ``rg_lru`` and its gradient
+``rg_lru_bwd``) take tensors and dispatch on their device: the kernel on a
+CUDA device (or raise), the plain version from :mod:`ref` on the CPU.
+Each Metronome op takes host arrays (any float dtype; ``core`` builds
+float64), casts them to the kernels' types here — float32, and uint8 for
+the 0/1 route matrix — copies them to ``device`` once, and dispatches on
+the tensors' device: on a CUDA device the hand-written kernel runs (or
+raises), on the CPU its plain PyTorch version from :mod:`ref`.  Results
+come back as numpy float32 arrays, as the JAX package's ops return them.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -23,7 +24,7 @@ from .metronome_fill import metronome_fill
 from .metronome_score import (metronome_score_multilink,
                               metronome_score_multilink_batch,
                               metronome_score_pairwise)
-from .rg_lru import rg_lru_pallas
+from .rg_lru import _rg_lru_pallas_bwd, rg_lru_pallas
 
 Device = Union[str, torch.device]
 
@@ -129,6 +130,31 @@ def progressive_fill(demands, routes, caps,
 # rg-lru recurrence
 # ---------------------------------------------------------------------------
 
+class _RgLru(torch.autograd.Function):
+    """The forward kernel; the backward is the adjoint recurrence
+    (:func:`rg_lru_bwd`), from the saved gates and output."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        y = rg_lru_pallas(a, x)
+        ctx.save_for_backward(a, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        a, y = ctx.saved_tensors
+        return rg_lru_bwd(a, y, g)
+
+
 def rg_lru(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y_t = a_t * y_{t-1} + x_t along S from a zero state, (B, S, W)."""
-    return rg_lru_pallas(a, x)
+    """y_t = a_t * y_{t-1} + x_t along S from a zero state, (B, S, W),
+    differentiable in ``a`` and ``x``."""
+    return _RgLru.apply(a, x)
+
+
+def rg_lru_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(da, dx) of ``y = rg_lru(a, x)`` for upstream gradient ``g``: the
+    backward kernel on a CUDA device, :func:`ref.rg_lru_bwd_ref` on the
+    CPU.  Strided inputs are copied to contiguous ones first."""
+    return _rg_lru_pallas_bwd(a.contiguous(), y.contiguous(), g.contiguous())

@@ -62,6 +62,26 @@ def rg_lru_ref(a: torch.Tensor, x: torch.Tensor,
     return ys.to(x.dtype)
 
 
+def rg_lru_bwd_ref(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of :func:`rg_lru_ref` from a zero state, an explicit
+    reverse loop: for upstream gradient g and output y, d_{S-1} = g_{S-1},
+    d_t = g_t + a_{t+1} * d_{t+1}; returns (da, dx) with dx_t = d_t and
+    da_t = d_t * y_{t-1}, y_{-1} = 0.  Each step rounds as autograd through
+    the forward loop does, so the two agree bit for bit."""
+    b, s, w = g.shape
+    af, yf, gf = a.float(), y.float(), g.float()
+    da = torch.empty((b, s, w), dtype=torch.float32, device=g.device)
+    dx = torch.empty((b, s, w), dtype=torch.float32, device=g.device)
+    d = gf[:, s - 1]
+    for t in range(s - 1, -1, -1):
+        if t < s - 1:
+            d = gf[:, t] + af[:, t + 1] * d
+        dx[:, t] = d
+        da[:, t] = d * (yf[:, t - 1] if t > 0 else torch.zeros_like(d))
+    return da.to(a.dtype), dx.to(y.dtype)
+
+
 def metronome_score_ref(base_demand, bank_a, bank_b,
                         capacity: float) -> torch.Tensor:
     """Pairwise rotation-score enumeration oracle.

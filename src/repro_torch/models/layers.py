@@ -35,6 +35,28 @@ def truncated_normal(generator: torch.Generator, shape: Tuple[int, ...],
     return t.mul_(std).to(dtype)
 
 
+class _GradBf16Barrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def grad_bf16_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity with a bf16 cotangent cast.
+
+    The f32 logits/loss head makes every residual-stream cotangent f32;
+    casting the cotangent back to bf16 at block boundaries keeps the
+    backward collectives in bf16 -- the standard mixed-precision training
+    contract.  The JAX package wires it into the dense family's blocks under
+    ``cfg.bf16_grad_barrier``; the port has no dense family yet (ROADMAP
+    A13), so nothing calls it yet."""
+    return _GradBf16Barrier.apply(x)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

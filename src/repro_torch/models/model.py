@@ -1,11 +1,16 @@
-"""Model assembly: init / forward / prefill / decode (the griffin family).
+"""Model assembly: init / forward + loss / prefill / decode (the griffin
+family).
 
 RecurrentGemma: repeating (RG-LRU, RG-LRU, local attention) groups, every
 temporal block followed by an MLP, and a tail of RG-LRU sublayers when the
 layer count is not a multiple of 3.  The JAX package's ``models/model.py``
 op for op; parameters keep its tree, with the per-layer weights of
 ``groups`` and ``tail`` stacked on a leading axis, and its ``lax.scan`` over
-layers is a Python loop.  Caches are updated in place.
+layers is a Python loop.  With ``cfg.remat`` the training forward
+recomputes each group and tail layer in the backward pass
+(``torch.utils.checkpoint``, nothing saved inside, as the JAX package's
+``nothing_saveable``).  Serving runs without autograd; caches are updated in
+place.
 
 The other families of the JAX package are not ported yet: the port raises
 ``NotImplementedError`` naming their ROADMAP item.
@@ -16,8 +21,10 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from .. import _device
+from .._tree import tree_map
 from . import layers as L
 from . import recurrent as R
 from .config import ATTN, RGLRU, ModelConfig
@@ -41,19 +48,19 @@ def _check_family(cfg: ModelConfig) -> None:
         raise ValueError(cfg.family)
 
 
-def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Tree) -> Tree:
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
 def _stack(trees: List[Tree]) -> Tree:
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
-def _layer(tree: Tree, i: int) -> Tree:
-    return _tree_map(lambda t: t[i], tree)
+def _unstack(params: Tree, key: str, n: int) -> List[Tree]:
+    """The ``n`` per-layer trees of the stacked ``params[key]`` (none when
+    ``n`` is 0), by one ``unbind`` a leaf: its backward stacks the layers'
+    gradients once, where indexing layer by layer would add a zero-padded
+    full-size gradient per layer."""
+    if not n:
+        return []
+    flat = tree_map(torch.unbind, params[key])
+    return [tree_map(lambda ts: ts[i], flat) for i in range(n)]
 
 
 def _n_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -98,7 +105,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     if n_tail:
         p["tail"] = _stack([_griffin_sub_init(cfg, RGLRU, gen)
                             for _ in range(n_tail)])
-    return _tree_map(lambda t: t.to(dev), p)
+    return tree_map(lambda t: t.to(dev), p)
 
 
 def param_count(params: Tree) -> int:
@@ -132,26 +139,99 @@ def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.to(cfg.logit_dtype) @ params["head"].to(cfg.logit_dtype)
 
 
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` recomputed in the backward pass under ``cfg.remat`` (when
+    autograd records): ``torch.utils.checkpoint`` keeps only its inputs,
+    which is the JAX package's ``nothing_saveable`` policy."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: the port recomputes "
+            "everything ('nothing'); saving matmul outputs ('dots') comes "
+            "with the families that use it (ROADMAP A13)")
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+
+    return remat
+
+
 # ---------------------------------------------------------------------------
-# Forward
+# Training forward + loss
 # ---------------------------------------------------------------------------
 
 def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward over whole sequences (no cache). tokens: (B, S) -> logits
-    (B, S, V) in ``cfg.logit_dtype``."""
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward over whole sequences (no cache). tokens: (B, S) ->
+    (logits (B, S, V) in ``cfg.logit_dtype``, moe_aux_loss); the griffin
+    family has no MoE, so its aux loss is a float32 zero."""
     _check_family(cfg)
     x = params["embed"][tokens].to(cfg.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_groups, n_tail = _n_groups(cfg)
-    for i in range(n_groups):
-        gp = _layer(params["groups"], i)
+
+    def body(x, gp):
         x, _, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
         x, _, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
         x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions)
-    for i in range(n_tail):
-        x, _, _ = _griffin_sub_seq(cfg, x, _layer(params["tail"], i), RGLRU,
-                                   positions)
-    return _logits(params, cfg, x)
+        return x
+
+    def tbody(x, tp):
+        x, _, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
+        return x
+
+    body, tbody = _maybe_remat(body, cfg), _maybe_remat(tbody, cfg)
+    for gp in _unstack(params, "groups", n_groups):
+        x = body(x, gp)
+    for tp in _unstack(params, "tail", n_tail):
+        x = tbody(x, tp)
+    return _logits(params, cfg, x), aux
+
+
+class _TokenCrossEntropy(torch.autograd.Function):
+    """logsumexp(logits) - logits[label] per token, (B, S, V) -> (B, S).
+
+    The backward writes softmax(logits) - onehot(label) into one new
+    (B, S, V) buffer: at full width one micro-batch's float32 logits are
+    4.2 GB, and autograd through ``logsumexp`` and ``gather`` would hold
+    two or three more of that size."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        ctx.save_for_backward(logits, logz, labels)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, labels = ctx.saved_tensors
+        p = torch.sub(logits, logz[..., None]).exp_()
+        p.scatter_add_(-1, labels[..., None],
+                       torch.full_like(labels[..., None], -1.0,
+                                       dtype=p.dtype))
+        return p.mul_(g[..., None]), None
+
+
+def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ MoE load-balance aux); labels < 0 are
+    masked.  Returns (total, {"ce", "aux", "tokens"})."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          positions=batch.get("positions"))
+    labels = batch["labels"]
+    valid = labels >= 0
+    ce = _TokenCrossEntropy.apply(logits, labels.clamp_min(0).long()) * valid
+    n_valid = valid.sum()
+    loss = ce.sum() / n_valid.clamp_min(1)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux,
+                                     "tokens": n_valid}
 
 
 # ---------------------------------------------------------------------------
@@ -189,20 +269,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+@torch.no_grad()
 def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Tree]:
     """Process the prompt, build the decode state. Returns (last_logits
     (B, 1, V), cache); ``max_len`` reserves cache room for decoding.  Runs
-    on the device of the parameters."""
+    on the device of the parameters, without autograd."""
     _check_family(cfg)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), prefill=True,
                        device=params["embed"].device)
     x = params["embed"][tokens].to(cfg.dtype)
     n_groups, n_tail = _n_groups(cfg)
-    for i in range(n_groups):
-        gp = _layer(params["groups"], i)
+    for i, gp in enumerate(_unstack(params, "groups", n_groups)):
         x, s1, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
         x, s2, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
         x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions,
@@ -211,9 +291,8 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
         for j, st in enumerate((s1, s2)):
             cache["conv"][i, j] = st["conv"]
             cache["h"][i, j] = st["h"]
-    for i in range(n_tail):
-        x, st, _ = _griffin_sub_seq(cfg, x, _layer(params["tail"], i), RGLRU,
-                                    positions)
+    for i, tp in enumerate(_unstack(params, "tail", n_tail)):
+        x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
         cache["tail_conv"][i] = st["conv"]
         cache["tail_h"][i] = st["h"]
     cache["index"].fill_(s)
@@ -226,6 +305,7 @@ def _ring_positions(win: int, index: torch.Tensor) -> torch.Tensor:
     return index - ((index - i) % win)
 
 
+@torch.no_grad()
 def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Tree]:
     """One token step. tokens: (B, 1). Returns (logits (B,1,V), cache).
@@ -266,18 +346,16 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
                              L.rmsnorm(sp["ln_mlp"], x_new, cfg.norm_eps))
 
     n_groups, n_tail = _n_groups(cfg)
-    for i in range(n_groups):
-        gp = _layer(params["groups"], i)
+    for i, gp in enumerate(_unstack(params, "groups", n_groups)):
         for j, name in enumerate(("rg1", "rg2")):
             st = {"conv": cache["conv"][i, j], "h": cache["h"][i, j]}
             x, st, _ = _griffin_sub_seq(cfg, x, gp[name], RGLRU, pos, state=st)
             cache["conv"][i, j] = st["conv"]
             cache["h"][i, j] = st["h"]
         x = attn_ring(gp["attn"], x, cache["k"][i], cache["v"][i])
-    for i in range(n_tail):
+    for i, tp in enumerate(_unstack(params, "tail", n_tail)):
         st = {"conv": cache["tail_conv"][i], "h": cache["tail_h"][i]}
-        x, st, _ = _griffin_sub_seq(cfg, x, _layer(params["tail"], i), RGLRU,
-                                    pos, state=st)
+        x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, pos, state=st)
         cache["tail_conv"][i] = st["conv"]
         cache["tail_h"][i] = st["h"]
     new_cache = dict(cache, index=index + 1)

@@ -1,11 +1,117 @@
-"""serve_step / prefill_step builders (the serving part of the JAX
-package's ``runtime/steps.py``; the train step waits for ROADMAP A14)."""
+"""The train step with gradient accumulation, and the serving steps (the
+JAX package's ``runtime/steps.py``).
+
+``build_train_step`` returns a function ``(state, batch) -> (state,
+metrics)`` that splits the global batch into micro-batches (bounded
+activation memory), accumulates their gradients in ``accum_dtype`` and
+applies AdamW.  Gradients come from ``torch.autograd.grad`` over the
+parameter leaves; the port runs on one card, so there are no sharding
+constraints yet (ROADMAP A15).
+"""
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Any, Callable, Dict, Tuple, Union
 
-from ..models import decode_step, prefill
-from ..models.config import ModelConfig
+import torch
+
+from ..models import decode_step, init_model, loss_fn, prefill
+from ..models.config import ModelConfig, ShapeConfig
+from ..optim import AdamWConfig, adamw_init, adamw_update, quantize_int8
+from .._tree import leaves, rebuild
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: Dict
+    step: torch.Tensor
+
+
+def auto_microbatches(cfg: ModelConfig, shape: ShapeConfig,
+                      n_data_shards: int) -> int:
+    """Pick a microbatch count keeping ~<=2 sequences x 4k tokens per data
+    shard per microbatch (activation-memory heuristic; perf loop can tune)."""
+    if shape.microbatch:
+        return max(1, shape.global_batch // shape.microbatch)
+    tokens_per_seq = shape.seq_len
+    seqs_per_shard = shape.global_batch / max(n_data_shards, 1)
+    budget = max(1.0, 8192.0 / tokens_per_seq)  # seqs per shard per micro
+    n_micro = int(max(1, round(seqs_per_shard / budget)))
+    # n_micro must divide global batch
+    while shape.global_batch % n_micro:
+        n_micro += 1
+    return n_micro
+
+
+def _micro_slice(x: torch.Tensor, i: int, n_micro: int) -> torch.Tensor:
+    if x.dim() == 0:
+        return x
+    # positions for mrope have shape (3, B, S): batch on axis 1
+    axis = 1 if x.dim() == 3 and x.shape[0] == 3 else 0
+    b = x.shape[axis] // n_micro
+    return x.narrow(axis, i * b, b)
+
+
+def build_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    n_micro: int = 1,
+    accum_dtype: Any = torch.float32,
+    param_specs: Any = None,
+    compress_grads: bool = False,
+) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    Each micro-batch's gradients are added into ``accum_dtype`` buffers in
+    place and freed before the next micro-batch; the sum is divided by
+    ``n_micro``, optionally int8 quantize-dequantized (``compress_grads``:
+    the numerics of sending the cross-pod all-reduce at int8), and applied
+    by AdamW, which updates ``state``'s parameters and moments in place.
+    Metrics: ``loss``, ``aux``, ``grad_norm`` and ``lr``, float32 tensors
+    on the parameters' device.  ``param_specs`` is accepted for the JAX
+    package's signature and ignored: the port shards nothing until
+    ``sharding`` is ported (ROADMAP A15)."""
+    del param_specs
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        params = leaves(state.params)
+        grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                 for p in params]
+        dev = params[0].device
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(n_micro):
+            xs = [p.detach().requires_grad_() for p in params]
+            mb = {k: _micro_slice(v, i, n_micro) for k, v in batch.items()}
+            loss, metrics = loss_fn(rebuild(state.params, xs), cfg, mb)
+            g = torch.autograd.grad(loss, xs, allow_unused=True)
+            del xs
+            with torch.no_grad():
+                for acc, gi in zip(grads, g):
+                    if gi is not None:
+                        acc.add_(gi)
+                del g
+                loss_sum += loss.detach()
+                aux_sum += metrics["aux"].detach()
+            del loss, metrics
+        with torch.no_grad():
+            for acc in grads:
+                acc.div_(n_micro)
+            if compress_grads:
+                for acc in grads:
+                    q, scale = quantize_int8(acc)
+                    acc.copy_(q.float() * scale)
+                    del q
+        new_params, new_opt, opt_metrics = adamw_update(
+            opt_cfg, state.params, rebuild(state.params, grads), state.opt)
+        del grads
+        metrics = {"loss": loss_sum / n_micro, "aux": aux_sum / n_micro,
+                   **opt_metrics}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return train_step
 
 
 def build_serve_step(cfg: ModelConfig) -> Callable:
@@ -23,3 +129,15 @@ def build_prefill_step(cfg: ModelConfig) -> Callable:
         return prefill(params, cfg, batch["tokens"],
                        positions=batch.get("positions"))
     return prefill_step
+
+
+def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                     generator: torch.Generator,
+                     device: Union[str, torch.device] = "cuda") -> TrainState:
+    """Parameters from :func:`~repro_torch.models.init_model` on
+    ``device``, zero AdamW moments and step 0.  (The JAX package also
+    returns the parameters' logical sharding specs; the port has none.)"""
+    params = init_model(cfg, generator, device)
+    opt = adamw_init(opt_cfg, params)
+    step = torch.zeros((), dtype=torch.int32, device=opt["step"].device)
+    return TrainState(params, opt, step)

@@ -84,8 +84,9 @@ def test_forward_logits(pair, s):
     dtype, jcfg, jparams, tcfg, tparams = pair
     toks = _tokens(1, jcfg.vocab, B, s)
     want, _ = jmodels.forward(jparams, jcfg, jnp.asarray(toks, jnp.int32))
-    got = tmodels.forward(tparams, tcfg, torch.as_tensor(toks))
+    got, aux = tmodels.forward(tparams, tcfg, torch.as_tensor(toks))
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, s, 512)
+    assert aux.dtype == torch.float32 and aux.dim() == 0 and float(aux) == 0.0
     _close(got, want, DTYPES[dtype][2], "forward logits")
 
 
@@ -121,7 +122,7 @@ def test_decode_matches_forward_within_the_window():
     _, _, tcfg, tparams = _pair("float32")
     s = 12
     toks = torch.as_tensor(_tokens(3, tcfg.vocab, B, s + N_DECODE))
-    full = tmodels.forward(tparams, tcfg, toks)
+    full, _ = tmodels.forward(tparams, tcfg, toks)
     logits, cache = tmodels.prefill(tparams, tcfg, toks[:, :s],
                                     max_len=s + N_DECODE)
     _close(logits[:, 0], full[:, s - 1], 1e-4, "prefill vs forward")
