@@ -38,6 +38,13 @@ JSON line with its numbers and seconds:
                 match remat over every group and tail layer, and 4 steps
                 on a repeated batch must lower its loss; one step under
                 ``torch.profiler``
+  serve_dense   the serve phase's traffic on Llama-3-8B at full width and
+                depth (8.03 B parameters): prefill launches flash once a
+                layer, decode runs the plain chunked attention, as the
+                reference does
+  train_dense   the train phase's steps and checks on Llama-3-8B at full
+                width with its depth cut to 10 of 32 layers (one card holds
+                no more state), flash launched 4 times a layer a step
   kernels       each kernel wrapper against its plain PyTorch version on the
                 very inputs the paths above gave it, plus synthetic cases
                 (padding, a wide candidate batch, a zero-capacity link whose
@@ -52,7 +59,8 @@ JSON line with its numbers and seconds:
                 the main paths' flash and RG-LRU launches, bounds and the
                 library's time: ``torch.cdist`` for the score, and for
                 attention ``scaled_dot_product_attention``, which the bf16
-                flash kernel must beat at the serving shape
+                flash kernel must beat at the serving shape; flash also at
+                the Llama-3-8B prefill and training launches
 
 Launch counts are zeroed just before each path and read just after it.
 Every check that fails raises, so the script exits non-zero; it also exits
@@ -160,7 +168,7 @@ REDESIGNED = {
         design={"bfloat16": "wgmma+tma: 2 warpgroups, 2-stage TMA ring "
                             "fed by thread 0",
                 "float32": "CUDA-core FMAs"},
-        ptxas_entries=("flash_fwd_bf16ILi256E",)),
+        ptxas_entries=("flash_fwd_bf16ILi256E", "flash_fwd_bf16ILi128E")),
     "rg_lru_pallas": dict(
         design="one warp per 32 columns, 3-stage cp.async ring",
         ptxas_entries=("rg_lru_kernel",)),
@@ -184,12 +192,22 @@ ALL_WRAPPERS = (metronome_fill,) + SCORE_WRAPPERS + MODEL_WRAPPERS
 
 # the training traffic: full-width RecurrentGemma-2B, train_4k's sequence
 # length, 2 sequences a step in 2 micro-batches (gradient accumulation),
-# the reference's AdamW defaults.  The loss check repeats the step-0 batch
-# with no warm-up at 3e-5: the first step's witness (first_step_witness)
-# measures how far past first order a no-warm-up step at the defaults'
-# 3e-4 would be (PERF.md, Findings)
+# the reference's AdamW defaults (the warm-up step runs at 3e-6, 1/100 of
+# 3e-4).  The loss check repeats the step-0 batch with no warm-up at 3e-5:
+# the first step's witness (first_step_witness) measures how far past
+# first order a no-warm-up step at the defaults' 3e-4 would be (PERF.md,
+# Findings)
 TRAIN = dict(arch="recurrentgemma-2b", seq=4096, batch=2, n_micro=2,
              steps=4, seed=0, check_lr=3e-5)
+# the same traffic on Llama-3-8B at full width, its depth cut from 32 to
+# 10 layers: 3.23 B parameters, 45.3 GB of bf16 weights, float32 moments
+# and float32 accumulator, which leaves one card room for a micro-batch's
+# gradients, the float32 logits and the attention recompute (PERF.md).
+# The loss check runs at 3e-6, where the warm-up step's witness held its
+# loss change to 0.99 of first order; a no-warm-up step at 3e-5 is ~60x
+# past it here (lr x ||g||_1 = 64 nats) and the repeated batch's loss
+# rose from 8.66 to 12.56 before it fell (PERF.md, Findings)
+TRAIN_DENSE = dict(TRAIN, arch="llama3-8b", n_layers=10, check_lr=3e-6)
 # the warm-up step's loss change on its batch over its first-order
 # prediction g . (p1 - p0): a gradient wrong on much of the model, or a
 # step too long for first order, moves it far off 1
@@ -198,8 +216,16 @@ FIRST_STEP_RATIO = (0.5, 1.5)
 # the serving traffic: full-width RecurrentGemma-2B, max_len 4096 (a
 # multiple of attn_chunk, so repro.launch.serve could serve the same), prompts
 # longer than the 2048-token window
+# (a warm-up batch generates ``warmup_gen`` tokens, the profiled batch
+# ``profile_gen``)
 SERVE = dict(arch="recurrentgemma-2b", requests=8, batch=4, prompt_len=4064,
-             gen=32, seed=0)
+             gen=32, seed=0, warmup_gen=2, profile_gen=8)
+# the same traffic on Llama-3-8B at full width and depth: 8.03 B
+# parameters (16.1 GB in bf16), a 2.1 GB KV cache a batch.  Its decode
+# attends over the whole cache by chunks of attn_chunk (1024) tokens, as
+# the reference's does, so prompt plus generated tokens must fill whole
+# chunks: the warm-up and profiled batches generate all 32 tokens too
+SERVE_DENSE = dict(SERVE, arch="llama3-8b", warmup_gen=32, profile_gen=32)
 
 
 def emit(phase: str, **fields) -> None:
@@ -800,41 +826,57 @@ class CountingController(StopAndWaitController):
         return super().report_iteration(job, iter_ms)
 
 
-def phase_serve(launches, rec: Recorder) -> dict:
-    cfg = model_configs.get_config(SERVE["arch"])
+def _layer_counts(cfg) -> Tuple[int, int]:
+    """(attention layers, RG-LRU sublayers) of a dense or griffin model."""
+    if cfg.family == "dense":
+        return cfg.n_layers, 0
+    n_attn = cfg.n_layers // 3
+    return n_attn, 2 * n_attn + cfg.n_layers % 3
+
+
+def phase_serve(launches, rec: Recorder, spec: dict = SERVE,
+                name: str = "serve") -> dict:
+    """Serve ``spec``'s traffic at full width; each batch's prefill must
+    launch flash once an attention layer and RG-LRU once a recurrent
+    sublayer."""
+    cfg = model_configs.get_config(spec["arch"])
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(SERVE["seed"])
+    gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"])
     params = init_model(cfg, gen, DEVICE)
-    prompts = make_prompts(cfg, SERVE["requests"], SERVE["batch"],
-                           SERVE["prompt_len"], gen, DEVICE)
+    prompts = make_prompts(cfg, spec["requests"], spec["batch"],
+                           spec["prompt_len"], gen, DEVICE)
     _sync()
     init_s = time.perf_counter() - t0
     n_params = param_count(params)
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    serve_requests(params, cfg, prompts[:1], 2,
+    serve_requests(params, cfg, prompts[:1], spec["warmup_gen"],
                    IterationReporter(None, "warm-up", 1))
     ctl = CountingController()
-    reporter = IterationReporter(ctl, f"serve-{SERVE['arch']}", priority=1)
+    reporter = IterationReporter(ctl, f"serve-{spec['arch']}", priority=1)
     torch.cuda.reset_peak_memory_stats()
-    with counted(launches), rec.active():
+    path: Dict[str, int] = {}
+    with counted(path), rec.active():
         t0 = time.perf_counter()
-        res = serve_requests(params, cfg, prompts, SERVE["gen"], reporter)
+        res = serve_requests(params, cfg, prompts, spec["gen"], reporter)
         seconds = time.perf_counter() - t0
+    for w, n in path.items():
+        launches[w] = launches.get(w, 0) + n
     peak = torch.cuda.max_memory_allocated()
     n_batches = len(prompts)
-    steps = SERVE["gen"] - 1
-    check(res.finite, "serve: a logit is not finite")
-    check(launches["flash_attention_fwd"] == 8 * n_batches,
-          f"serve: {launches['flash_attention_fwd']} flash launches, "
-          f"expected {8 * n_batches}")
-    check(launches["rg_lru_pallas"] == 18 * n_batches,
-          f"serve: {launches['rg_lru_pallas']} RG-LRU launches, "
-          f"expected {18 * n_batches}")
+    steps = spec["gen"] - 1
+    n_attn, n_rg = _layer_counts(cfg)
+    check(res.finite, f"{name}: a logit is not finite")
+    check(path["flash_attention_fwd"] == n_attn * n_batches,
+          f"{name}: {path['flash_attention_fwd']} flash launches, "
+          f"expected {n_attn * n_batches}")
+    check(path["rg_lru_pallas"] == n_rg * n_batches,
+          f"{name}: {path['rg_lru_pallas']} RG-LRU launches, "
+          f"expected {n_rg * n_batches}")
     check(ctl.reports == n_batches * steps,
-          f"serve: the controller received {ctl.reports} reports, expected "
-          f"{n_batches * steps}")
-    check(all(t.shape == (SERVE["batch"], SERVE["gen"]) for t in res.tokens),
-          "serve: generated tokens of the wrong shape")
+          f"{name}: the controller received {ctl.reports} reports, "
+          f"expected {n_batches * steps}")
+    check(all(t.shape == (spec["batch"], spec["gen"]) for t in res.tokens),
+          f"{name}: generated tokens of the wrong shape")
 
     # forward over the first batch's prompts, held against prefill's
     # last-position logits; its launches are counted apart
@@ -855,34 +897,36 @@ def phase_serve(launches, rec: Recorder) -> dict:
     # where a batch's time goes: one batch of 8 tokens under the profiler
     with torch.inference_mode():
         busy = device_busy_share(
-            lambda: serve_requests(params, cfg, prompts[:1], 8,
+            lambda: serve_requests(params, cfg, prompts[:1],
+                                   spec["profile_gen"],
                                    IterationReporter(None, "profile", 1)),
-            "profiled run of one batch, prefill and 7 decode steps")
+            f"profiled run of one batch, prefill and "
+            f"{spec['profile_gen'] - 1} decode steps")
     for w in MODEL_WRAPPERS:
         w.launches = 0
 
     step_ms = sorted(1e3 * t for t in res.step_s)
     n_tok = sum(t.numel() for t in res.tokens)
     out = dict(arch=cfg.name, params=n_params, param_bytes=n_bytes,
-               dtype=str(cfg.dtype), requests=SERVE["requests"],
-               batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
-               gen=SERVE["gen"], init_seconds=init_s, seconds=seconds,
+               dtype=str(cfg.dtype), requests=spec["requests"],
+               batch=spec["batch"], prompt_len=spec["prompt_len"],
+               gen=spec["gen"], init_seconds=init_s, seconds=seconds,
                prefill_ms=[1e3 * t for t in res.prefill_s],
                decode_step_ms_median=statistics.median(step_ms),
                decode_step_ms_p90=step_ms[int(0.9 * (len(step_ms) - 1))],
                decode_steps=len(step_ms),
                tokens=n_tok, tokens_per_s=n_tok / seconds,
-               prompt_tokens_per_s=SERVE["requests"] * SERVE["prompt_len"]
+               prompt_tokens_per_s=spec["requests"] * spec["prompt_len"]
                / sum(res.prefill_s),
-               decode_tokens_per_s=SERVE["batch"] * len(step_ms)
+               decode_tokens_per_s=spec["batch"] * len(step_ms)
                / sum(res.step_s),
-               flash_launches=launches["flash_attention_fwd"],
-               rg_lru_launches=launches["rg_lru_pallas"],
+               flash_launches=path["flash_attention_fwd"],
+               rg_lru_launches=path["rg_lru_pallas"],
                controller_reports=ctl.reports,
                peak_memory_bytes=peak,
                forward_vs_prefill_max_abs_err=fwd_err,
                forward_launches=fwd_launches, device_busy=busy)
-    emit("serve", **out)
+    emit(name, **out)
     return out
 
 
@@ -891,37 +935,42 @@ def _train_batch(ds: SyntheticLM, step: int) -> Dict[str, torch.Tensor]:
             for k, v in ds.batch_at(step).items()}
 
 
-def _train_flops(cfg, n_params_less_embed: int, tokens: int,
+def _train_flops(cfg, n_params_less_embed: int, tokens: int, seq: int,
                  seqs: int) -> int:
     """Model FLOPs of one training step, no remat: 6 N' T for the weights
     (N' the parameters less the embedding table) plus, per sequence and
     attention layer, 12 D H over the unmasked (q, k) pairs (Q.K^T and P.V,
     forward and backward)."""
-    n_attn = cfg.n_layers // 3
-    pairs = _unmasked_pairs(TRAIN["seq"], True, cfg.window)
+    n_attn, _ = _layer_counts(cfg)
+    pairs = _unmasked_pairs(seq, True, cfg.window)
     return (6 * n_params_less_embed * tokens
             + 12 * cfg.head_dim * cfg.n_heads * pairs * seqs * n_attn)
 
 
-def phase_train(launches, rec: Recorder) -> dict:
+def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
+                name: str = "train") -> dict:
+    """Train ``spec``'s model at full width (its depth cut to
+    ``spec["n_layers"]`` where given) on ``spec``'s traffic."""
     torch.cuda.empty_cache()  # the serving model is gone with its phase
-    cfg = model_configs.get_config(TRAIN["arch"])
+    cfg = full = model_configs.get_config(spec["arch"])
+    if spec.get("n_layers"):
+        cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
     check(cfg.remat and cfg.remat_policy == "nothing",
-          "train: the config does not recompute every group")
-    n_micro, steps = TRAIN["n_micro"], TRAIN["steps"]
+          f"{name}: the config does not recompute every layer")
+    n_micro, steps = spec["n_micro"], spec["steps"]
     opt_cfg = AdamWConfig()  # the reference's defaults, float32 moments
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN["seed"])
+    gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"])
     state = init_train_state(cfg, opt_cfg, gen, DEVICE)
     _sync()
     init_s = time.perf_counter() - t0
     n_params = param_count(state.params)
     n_embed = state.params["embed"].numel()
-    ds = SyntheticLM(cfg.vocab, TRAIN["seq"], TRAIN["batch"],
-                     seed=TRAIN["seed"])
+    ds = SyntheticLM(cfg.vocab, spec["seq"], spec["batch"],
+                     seed=spec["seed"])
     step_fn = build_train_step(cfg, opt_cfg, n_micro)
     ctl = CountingController()
-    job = f"train-{TRAIN['arch']}"
+    job = f"train-{spec['arch']}"
     gate = CommGate(ctl, job=job)
     reporter = IterationReporter(ctl, job, priority=1)
 
@@ -943,7 +992,7 @@ def phase_train(launches, rec: Recorder) -> dict:
     # m = (1 - b1) * clipped gradient after the first step
     zero = [i for i, m in enumerate(_leaves(state.opt["m"]))
             if not float(torch.linalg.vector_norm(m)) > 0.0]
-    check(not zero, f"train: {len(zero)} parameter leaves got a zero "
+    check(not zero, f"{name}: {len(zero)} parameter leaves got a zero "
                     f"gradient in the first step (leaf indices {zero})")
     witness = first_step_witness(state, p0, _train_batch(ds, 0), cfg,
                                  opt_cfg, losses[0], grad_norms[0], n_micro)
@@ -953,25 +1002,24 @@ def phase_train(launches, rec: Recorder) -> dict:
     with counted(path), rec.active():
         for step in range(1, 1 + steps):
             one_step(step)
-    for name, n in path.items():
-        launches[name] = launches.get(name, 0) + n
+    for w, n in path.items():
+        launches[w] = launches.get(w, 0) + n
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses + grad_norms),
-          f"train: a loss or grad norm is not finite: {losses} {grad_norms}")
-    n_attn = cfg.n_layers // 3
-    n_rg = 2 * n_attn + cfg.n_layers % 3
+          f"{name}: a loss or grad norm is not finite: {losses} "
+          f"{grad_norms}")
+    n_attn, n_rg = _layer_counts(cfg)
     want = {"flash_attention_fwd": 2 * n_attn * n_micro * steps,
             "rg_lru_pallas": 2 * n_rg * n_micro * steps,
             "_rg_lru_pallas_bwd": n_rg * n_micro * steps}
-    for name, n in want.items():
-        check(path[name] == n,
-              f"train: {path[name]} {name} launches, expected {n}")
+    for w, n in want.items():
+        check(path[w] == n, f"{name}: {path[w]} {w} launches, expected {n}")
     check(ctl.reports == 1 + steps,
-          f"train: the controller received {ctl.reports} reports, expected "
-          f"{1 + steps}")
+          f"{name}: the controller received {ctl.reports} reports, "
+          f"expected {1 + steps}")
 
     # the loss check: the step-0 batch again, no warm-up
-    check_fn = build_train_step(cfg, AdamWConfig(lr=TRAIN["check_lr"],
+    check_fn = build_train_step(cfg, AdamWConfig(lr=spec["check_lr"],
                                                  warmup_steps=0), n_micro)
     batch0 = _train_batch(ds, 0)
     check_losses = []
@@ -979,26 +1027,30 @@ def phase_train(launches, rec: Recorder) -> dict:
         state, metrics = check_fn(state, batch0)
         check_losses.append(float(metrics["loss"]))
     check(all(math.isfinite(x) for x in check_losses),
-          f"train: repeated-batch losses {check_losses}")
+          f"{name}: repeated-batch losses {check_losses}")
     for w in MODEL_WRAPPERS:
         w.launches = 0
     busy = train_step_profile(lambda: check_fn(state, batch0),
-                              TRAIN["seq"], cfg.vocab)
+                              spec["seq"], cfg.vocab)
     for w in MODEL_WRAPPERS:
         w.launches = 0
 
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tokens = spec["batch"] * spec["seq"]
     med = statistics.median(step_s[1:])
-    flops = _train_flops(cfg, n_params - n_embed, tokens, TRAIN["batch"])
+    flops = _train_flops(cfg, n_params - n_embed, tokens, spec["seq"],
+                         spec["batch"])
     timed = sorted(1e3 * t for t in step_s[1:])
     out = dict(arch=cfg.name, params=n_params, dtype=str(cfg.dtype),
+               layers=cfg.n_layers,
+               depth_cut=(f"{cfg.n_layers} of {full.n_layers} layers"
+                          if cfg.n_layers != full.n_layers else None),
                moment_dtype=str(opt_cfg.moment_dtype), remat=cfg.remat,
-               seq=TRAIN["seq"], batch=TRAIN["batch"], n_micro=n_micro,
+               seq=spec["seq"], batch=spec["batch"], n_micro=n_micro,
                init_seconds=init_s, warmup_step_ms=1e3 * step_s[0],
                step_ms=timed, step_ms_median=1e3 * med,
                step_ms_p90=timed[int(0.9 * (len(timed) - 1))],
                tokens_per_s=tokens / med, losses=losses,
-               grad_norms=grad_norms, check_lr=TRAIN["check_lr"],
+               grad_norms=grad_norms, check_lr=spec["check_lr"],
                repeated_batch_losses=check_losses, first_step=witness,
                peak_memory_bytes=peak, model_flops_per_step=flops,
                mfu=flops / (med * PEAK_BF16_OPS_PER_S),
@@ -1007,13 +1059,13 @@ def phase_train(launches, rec: Recorder) -> dict:
                controller_reports=ctl.reports, device_busy=busy)
     del state
     torch.cuda.empty_cache()
-    emit("train", **out)
+    emit(name, **out)
     check(check_losses[-1] < check_losses[0],
-          f"train: the repeated batch's loss did not fall: {check_losses}")
+          f"{name}: the repeated batch's loss did not fall: {check_losses}")
     lo, hi = FIRST_STEP_RATIO
     check(witness["predicted_dloss"] < 0.0
           and lo <= witness["ratio"] <= hi,
-          f"train: the first step's loss change is not its first-order "
+          f"{name}: the first step's loss change is not its first-order "
           f"prediction within {FIRST_STEP_RATIO}: {witness}")
     return out
 
@@ -1334,10 +1386,19 @@ def _gates(seed: int, shape: Tuple[int, ...]):
     return a, torch.randn(shape, generator=g, device=DEVICE)
 
 
-def model_kernel_cases(serve: Recorder, train: Recorder) -> Dict[str, dict]:
+def model_kernel_cases(serve: Recorder, train: Recorder,
+                       serve_dense: Recorder, train_dense: Recorder
+                       ) -> Dict[str, dict]:
     """The flash and RG-LRU kernels on the serve and train paths' first
     launches, then on synthetic cases."""
     cases: Dict[str, dict] = {}
+    # Llama-3-8B: head dim 128, 32 q heads over 8 kv heads, causal
+    for name, rec in (("flash_serve_dense", serve_dense),
+                      ("flash_train_dense", train_dense)):
+        q, k, v, causal, window = rec.inputs("flash_attention")[0]
+        cases[name] = _flash_case(q, k, v, bool(causal), int(window),
+                                  main_path=True)
+        del q, k, v
     q, k, v, causal, window = serve.inputs("flash_attention")[0]
     cases["flash_serve"] = _flash_case(q, k, v, bool(causal), int(window),
                                       main_path=True)
@@ -1401,7 +1462,8 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
 
 
 def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
-                  serve: Recorder, train: Recorder) -> dict:
+                  serve: Recorder, train: Recorder, serve_dense: Recorder,
+                  train_dense: Recorder) -> dict:
     cases: Dict[str, dict] = {}
     # the main path's fill launches all take the one-word route masks
     links = {rec_name: sorted({shape[1][2] for shape in rec.counts[
@@ -1459,7 +1521,7 @@ def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
         if name.startswith("score_") and "max_abs_err" in case:
             check(case["max_abs_err"] <= SCORE_TOL,
                   f"{name}: kernel vs plain {case['max_abs_err']}")
-    cases.update(model_kernel_cases(serve, train))
+    cases.update(model_kernel_cases(serve, train, serve_dense, train_dense))
     emit("kernels", tolerance={
         "fill": 0.0, "score": SCORE_TOL, "rg_lru": RG_LRU_TOL,
         "rg_lru_bwd": 0.0,
@@ -1531,6 +1593,12 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
              bound_by=flash["bound_by"], library_ms=flash["library_ms"],
              library="torch.nn.functional.scaled_dot_product_attention",
              shape=flash["shape"],
+             main_path_cases={n: {k: cases[n][k] for k in (
+                 "shape", "window", "ms", "device_us_per_launch",
+                 "device_traced", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err", "normwise_err")}
+                 for n in ("flash_serve", "flash_train", "flash_serve_dense",
+                           "flash_train_dense")},
              device_us_per_launch={n: v for n, v in device_us.items()
                                    if n.startswith("flash_")},
              **_redesign("flash_attention_fwd", ptxas)),
@@ -1585,14 +1653,18 @@ def main() -> int:
     ptxas = phase_build()
     launches: Dict[str, int] = {}
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
-    serve = Recorder()
+    serve, train = Recorder(), Recorder()
+    serve_dense, train_dense = Recorder(), Recorder()
     phase_trace_corpus(launches, corpus)
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_planner(launches, planner)
     phase_serve(launches, serve)
-    train = Recorder()
     phase_train(launches, train)
-    cases = phase_kernels(corpus, loop, planner, serve, train)
+    torch.cuda.empty_cache()  # the griffin models are gone with their phases
+    phase_serve(launches, serve_dense, SERVE_DENSE, "serve_dense")
+    phase_train(launches, train_dense, TRAIN_DENSE, "train_dense")
+    cases = phase_kernels(corpus, loop, planner, serve, train, serve_dense,
+                          train_dense)
     print(json.dumps(kernel_summary(launches, cases, ptxas)), flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
     print(info["nvidia_smi"], flush=True)

@@ -1,8 +1,8 @@
 # Hand-written Hopper CUDA kernels for the compute hot-spots:
 #   metronome_fill  — batched progressive-filling fluid solve
 #   metronome_score — the Score phase's joint rotation score (Eq. 18)
-#   flash_attention — attention forward of the griffin prefill
-#   rg_lru          — the RG-LRU recurrence of the griffin prefill
+#   flash_attention — attention forward of a fresh prompt (dense and griffin)
+#   rg_lru          — the RG-LRU recurrence of the griffin family
 # Each has a plain PyTorch version in ref.py and a dispatching entry point
 # in ops.py; CPU tensors take the plain version, CUDA tensors the kernel.
 # The CUDA sources in csrc/ build on first use (repro_torch._cuda_build).

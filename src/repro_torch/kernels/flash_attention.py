@@ -2,10 +2,12 @@
 or bidirectional, GQA.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-(``_flash_fwd_kernel``, launched by ``flash_attention_fwd``).  The port's
-griffin prefill runs it once per local-attention layer over the prompt's
-own keys (``models/layers.attention_layer``), where the JAX package computes
-the same function with ``layers.chunked_attention`` in XLA.
+(``_flash_fwd_kernel``, launched by ``flash_attention_fwd``).  The port
+runs it once per attention layer of a fresh prompt over the prompt's own
+keys (``models/layers.attention_layer``: the dense prefill and training
+forward, the griffin prefill's local-attention layers), where the JAX
+package computes the same function with ``layers.chunked_attention`` in
+XLA.
 
 What bounds it on the H100 is operations: 4*D per unmasked (q, k) pair,
 about 0.26 ms at the 989 TFLOP/s bf16 tensor-core peak for one serving

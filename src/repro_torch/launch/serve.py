@@ -1,6 +1,6 @@
 """Serving entry point: batched greedy decoding with Metronome reporting.
 
-``python -m repro_torch.launch.serve --arch recurrentgemma-2b --full``
+``python -m repro_torch.launch.serve --arch llama3-8b --full``
 
 The port's counterpart of ``repro.launch.serve``: a request queue is
 admitted ``--batch`` at a time, each batch is prefilled once and then
@@ -95,7 +95,7 @@ def serve_requests(params, cfg: ModelConfig, prompts: Sequence[torch.Tensor],
 
 def main(argv: Sequence[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

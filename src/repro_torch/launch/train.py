@@ -95,7 +95,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
 
 def main(argv: Sequence[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

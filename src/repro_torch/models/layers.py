@@ -51,9 +51,8 @@ def grad_bf16_barrier(x: torch.Tensor) -> torch.Tensor:
     The f32 logits/loss head makes every residual-stream cotangent f32;
     casting the cotangent back to bf16 at block boundaries keeps the
     backward collectives in bf16 -- the standard mixed-precision training
-    contract.  The JAX package wires it into the dense family's blocks under
-    ``cfg.bf16_grad_barrier``; the port has no dense family yet (ROADMAP
-    A13), so nothing calls it yet."""
+    contract.  Wired into the dense family's blocks under
+    ``cfg.bf16_grad_barrier``, as in the JAX package."""
     return _GradBf16Barrier.apply(x)
 
 

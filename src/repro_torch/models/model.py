@@ -1,19 +1,24 @@
-"""Model assembly: init / forward + loss / prefill / decode (the griffin
-family).
+"""Model assembly: init / forward + loss / prefill / decode (the dense and
+griffin families).
 
-RecurrentGemma: repeating (RG-LRU, RG-LRU, local attention) groups, every
-temporal block followed by an MLP, and a tail of RG-LRU sublayers when the
-layer count is not a multiple of 3.  The JAX package's ``models/model.py``
-op for op; parameters keep its tree, with the per-layer weights of
-``groups`` and ``tail`` stacked on a leading axis, and its ``lax.scan`` over
-layers is a Python loop.  With ``cfg.remat`` the training forward
-recomputes each group and tail layer in the backward pass
+Families:
+  dense   -- pre-norm GQA transformer (llama3/qwen3/internlm2/starcoder2,
+             qwen2-vl backbone with M-RoPE)
+  griffin -- RecurrentGemma: repeating (RG-LRU, RG-LRU, local attention)
+             groups, every temporal block followed by an MLP, and a tail of
+             RG-LRU sublayers when the layer count is not a multiple of 3
+
+The JAX package's ``models/model.py`` op for op; parameters keep its tree,
+with the per-layer weights of ``layers`` (dense), ``groups`` and ``tail``
+(griffin) stacked on a leading axis, and its ``lax.scan`` over layers is a
+Python loop.  With ``cfg.remat`` the training forward recomputes each layer
+(dense) or each group and tail layer (griffin) in the backward pass
 (``torch.utils.checkpoint``, nothing saved inside, as the JAX package's
 ``nothing_saveable``).  Serving runs without autograd; caches are updated in
 place.
 
-The other families of the JAX package are not ported yet: the port raises
-``NotImplementedError`` naming their ROADMAP item.
+The other families of the JAX package (moe, xlstm, encdec) are not ported
+yet: the port raises ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,15 +37,14 @@ from .config import ATTN, RGLRU, ModelConfig
 Tree = Dict[str, Union["Tree", torch.Tensor]]
 
 _PENDING = {
-    "dense": "ROADMAP A13 (dense family)",
-    "moe": "ROADMAP A13 (moe family, models/moe.py)",
-    "xlstm": "ROADMAP A13 (xlstm family, sLSTM/mLSTM cells)",
-    "encdec": "ROADMAP A13 (encdec family)",
+    "moe": "ROADMAP A13b (moe family, models/moe.py)",
+    "xlstm": "ROADMAP A13b (xlstm family, sLSTM/mLSTM cells)",
+    "encdec": "ROADMAP A13b (encdec family)",
 }
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "griffin":
+    if cfg.family not in ("dense", "griffin"):
         if cfg.family in _PENDING:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet, "
@@ -72,6 +76,19 @@ def _n_groups(cfg: ModelConfig) -> Tuple[int, int]:
 # Init
 # ---------------------------------------------------------------------------
 
+def _dense_layer_init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: routed experts are not ported yet, see "
+            f"{_PENDING['moe']}")
+    p: Tree = {"ln_attn": L.init_rmsnorm(cfg.d_model, cfg.param_dtype,
+                                         gen.device)}
+    p["attn"] = L.init_attention(cfg, gen)
+    p["ln_mlp"] = L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device)
+    p["mlp"] = L.init_mlp(cfg, gen)
+    return p
+
+
 def _griffin_sub_init(cfg: ModelConfig, kind: str,
                       gen: torch.Generator) -> Tree:
     p: Tree = {"ln": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device)}
@@ -97,14 +114,18 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                                    cfg.param_dtype, 0.02),
         "ln_f": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
     }
-    n_groups, n_tail = _n_groups(cfg)
-    p["groups"] = _stack([{"rg1": _griffin_sub_init(cfg, RGLRU, gen),
-                           "rg2": _griffin_sub_init(cfg, RGLRU, gen),
-                           "attn": _griffin_sub_init(cfg, ATTN, gen)}
-                          for _ in range(n_groups)])
-    if n_tail:
-        p["tail"] = _stack([_griffin_sub_init(cfg, RGLRU, gen)
-                            for _ in range(n_tail)])
+    if cfg.family == "dense":
+        p["layers"] = _stack([_dense_layer_init(cfg, gen)
+                              for _ in range(cfg.n_layers)])
+    else:
+        n_groups, n_tail = _n_groups(cfg)
+        p["groups"] = _stack([{"rg1": _griffin_sub_init(cfg, RGLRU, gen),
+                               "rg2": _griffin_sub_init(cfg, RGLRU, gen),
+                               "attn": _griffin_sub_init(cfg, ATTN, gen)}
+                              for _ in range(n_groups)])
+        if n_tail:
+            p["tail"] = _stack([_griffin_sub_init(cfg, RGLRU, gen)
+                                for _ in range(n_tail)])
     return tree_map(lambda t: t.to(dev), p)
 
 
@@ -118,6 +139,21 @@ def param_count(params: Tree) -> int:
 # ---------------------------------------------------------------------------
 # Block body shared by forward and prefill
 # ---------------------------------------------------------------------------
+
+def _dense_block_seq(cfg: ModelConfig, x, lp, positions, cache=None,
+                     cache_index=None):
+    """Pre-norm attention and MLP residuals.  (The JAX package also returns
+    the MoE aux loss here; for the dense family it is zero.)"""
+    if cfg.bf16_grad_barrier:
+        x = L.grad_bf16_barrier(x)
+    h, new_cache = L.attention_layer(
+        lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
+        positions=positions, causal=True, cache=cache,
+        cache_index=cache_index)
+    x = x + h
+    y = L.mlp(lp["mlp"], L.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps))
+    return x + y, new_cache
+
 
 def _griffin_sub_seq(cfg: ModelConfig, x, sp, kind, positions, state=None,
                      cache=None, cache_index=None):
@@ -149,7 +185,7 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r}: the port recomputes "
             "everything ('nothing'); saving matmul outputs ('dots') comes "
-            "with the families that use it (ROADMAP A13)")
+            "with the families that use it (ROADMAP A13b)")
 
     def remat(*args):
         if not torch.is_grad_enabled():
@@ -168,11 +204,20 @@ def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward over whole sequences (no cache). tokens: (B, S) ->
-    (logits (B, S, V) in ``cfg.logit_dtype``, moe_aux_loss); the griffin
-    family has no MoE, so its aux loss is a float32 zero."""
+    (logits (B, S, V) in ``cfg.logit_dtype``, moe_aux_loss); the dense and
+    griffin families have no MoE, so the aux loss is a float32 zero.
+    ``positions``: (B, S), or (3, B, S) for M-RoPE; None for 0..S-1."""
     _check_family(cfg)
     x = params["embed"][tokens].to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "dense":
+        def layer(x, lp):
+            return _dense_block_seq(cfg, x, lp, positions)[0]
+
+        layer = _maybe_remat(layer, cfg)
+        for lp in _unstack(params, "layers", cfg.n_layers):
+            x = layer(x, lp)
+        return _logits(params, cfg, x), aux
     n_groups, n_tail = _n_groups(cfg)
 
     def body(x, gp):
@@ -243,19 +288,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> Tree:
     """Decode state. Attention caches are in ``cfg.dtype``.
 
-    The decode cache is a ring buffer of the window size; prefill uses a
-    full-length buffer instead (and decode after prefill keeps it, so it
-    attends over every earlier position: ROADMAP C3)."""
+    Dense: a (n_layers, B, max_len, n_kv, head_dim) key and value cache.
+    Griffin: the decode cache is a ring buffer of the window size; prefill
+    uses a full-length buffer instead (and decode after prefill keeps it,
+    so it attends over every earlier position: ROADMAP C3)."""
     _check_family(cfg)
     dev = _device.resolve(device)
     hd, kv = cfg.head_dim, cfg.n_kv
-    n_groups, n_tail = _n_groups(cfg)
-    win = max_len if prefill else min(cfg.window or max_len, max_len)
-    w = cfg.lru_width or cfg.d_model
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=cfg.dtype, device=dev)
 
+    if cfg.family == "dense":
+        return {"k": zeros(cfg.n_layers, batch, max_len, kv, hd),
+                "v": zeros(cfg.n_layers, batch, max_len, kv, hd),
+                "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    n_groups, n_tail = _n_groups(cfg)
+    win = max_len if prefill else min(cfg.window or max_len, max_len)
+    w = cfg.lru_width or cfg.d_model
     cache: Tree = {
         "k": zeros(n_groups, batch, win, kv, hd),
         "v": zeros(n_groups, batch, win, kv, hd),
@@ -281,6 +331,13 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache = init_cache(cfg, b, max(max_len or s, s), prefill=True,
                        device=params["embed"].device)
     x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.family == "dense":
+        for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
+            x, _ = _dense_block_seq(cfg, x, lp, positions,
+                                    cache=(cache["k"][i], cache["v"][i]),
+                                    cache_index=0)
+        cache["index"].fill_(s)
+        return _logits(params, cfg, x[:, -1:]), cache
     n_groups, n_tail = _n_groups(cfg)
     for i, gp in enumerate(_unstack(params, "groups", n_groups)):
         x, s1, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
@@ -317,6 +374,12 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     index = cache["index"]
     x = params["embed"][tokens].to(cfg.dtype)
     pos = index.reshape(1, 1).expand(b, 1)
+    if cfg.family == "dense":
+        for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
+            x, _ = _dense_block_seq(cfg, x, lp, pos,
+                                    cache=(cache["k"][i], cache["v"][i]),
+                                    cache_index=index)
+        return _logits(params, cfg, x), dict(cache, index=index + 1)
     win = cache["k"].shape[2]
     slot = (index % win).reshape(1).long()
     kpos = _ring_positions(win, index)

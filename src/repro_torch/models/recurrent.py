@@ -8,7 +8,7 @@ op for op, with two execution modes:
     associative scan;
   * step mode (decode): an O(1) elementwise state update.
 
-The xLSTM cells (sLSTM, mLSTM) are not ported yet (ROADMAP A13).
+The xLSTM cells (sLSTM, mLSTM) are not ported yet (ROADMAP A13b).
 """
 from __future__ import annotations
 

@@ -144,12 +144,12 @@ def test_full_config_equals_the_reference():
     assert tcfg.pattern() == jcfg.pattern()
     assert tconfigs.canonical("recurrentgemma-2b") == "recurrentgemma_2b"
     with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("llama3-8b")
+        tconfigs.get_config("qwen2-moe-a2.7b")
 
 
 def test_other_families_name_their_roadmap_item():
     tcfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
-                               family="dense")
+                               family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         tmodels.init_model(tcfg, torch.Generator(), "cpu")
 

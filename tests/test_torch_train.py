@@ -636,7 +636,8 @@ def test_harness_default_config_needs_a_card(monkeypatch):
 
 def test_train_entry_point_runs_checkpoints_and_resumes(tmp_path, capsys):
     ckpt = str(tmp_path / "ckpt")
-    ttrain.main(["--device", "cpu", "--steps", "3", "--log-every", "1",
+    ttrain.main(["--arch", "recurrentgemma-2b", "--device", "cpu",
+                 "--steps", "3", "--log-every", "1",
                  "--ckpt-dir", ckpt, "--ckpt-every", "2"])
     out = capsys.readouterr().out.splitlines()
     assert [ln.split()[:2] for ln in out[:3]] == [
