@@ -45,6 +45,25 @@ JSON line with its numbers and seconds:
   train_dense   the train phase's steps and checks on Llama-3-8B at full
                 width with its depth cut to 10 of 32 layers (one card holds
                 no more state), flash launched 4 times a layer a step
+  serve_moe     the dense serving traffic on Qwen1.5-MoE-A2.7B at full
+                width and depth (14.32 B parameters): flash once a layer in
+                prefill, the routed experts' dispatch, products and combine
+                in plain PyTorch, as the reference computes them in XLA; the
+                warm-up batch's prefill reports the share of expert
+                assignments kept within capacity
+  train_moe     the dense train phase's steps and checks on Qwen1.5-MoE at
+                full width with its depth cut to 5 of 24 layers; also a
+                finite, non-zero aux loss every step, and a gradient on
+                each (layer, expert) slice exactly where the step-0 batch
+                kept a token for that expert
+  serve_xlstm   xLSTM-125M at full width and depth, 4096-token prompts (no
+                kernel on this path); decode after prefill must continue
+                the training forward
+  serve_encdec  the Whisper-small backbone at full width and depth over
+                1016 stub frames a request: flash bidirectional in each
+                encoder layer and causal in each decoder layer of a prefill
+  train_small   xLSTM-125M and Whisper-small trained at full width and
+                depth, 3 timed steps each, the train phase's checks
   kernels       each kernel wrapper against its plain PyTorch version on the
                 very inputs the paths above gave it, plus synthetic cases
                 (padding, a wide candidate batch, a zero-capacity link whose
@@ -60,7 +79,7 @@ JSON line with its numbers and seconds:
                 library's time: ``torch.cdist`` for the score, and for
                 attention ``scaled_dot_product_attention``, which the bf16
                 flash kernel must beat at the serving shape; flash also at
-                the Llama-3-8B prefill and training launches
+                the Llama-3-8B, Qwen1.5-MoE and Whisper main-path launches
 
 Launch counts are zeroed just before each path and read just after it.
 Every check that fails raises, so the script exits non-zero; it also exits
@@ -116,10 +135,11 @@ from repro_torch.kernels.metronome_score import (  # noqa: E402
 from repro_torch.kernels.rg_lru import (_rg_lru_pallas_bwd,  # noqa: E402
                                         rg_lru_pallas)
 from repro_torch.data import SyntheticLM  # noqa: E402
-from repro_torch.launch.serve import (make_prompts,  # noqa: E402
-                                      serve_requests)
-from repro_torch.models import (forward, init_model,  # noqa: E402
-                                loss_fn, param_count)
+from repro_torch.launch.serve import (make_frames,  # noqa: E402
+                                      make_prompts, serve_requests)
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_model, loss_fn, param_count, prefill)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime.comm_gate import (CommGate,  # noqa: E402
                                            IterationReporter)
@@ -226,6 +246,29 @@ SERVE = dict(arch="recurrentgemma-2b", requests=8, batch=4, prompt_len=4064,
 # the reference's does, so prompt plus generated tokens must fill whole
 # chunks: the warm-up and profiled batches generate all 32 tokens too
 SERVE_DENSE = dict(SERVE, arch="llama3-8b", warmup_gen=32, profile_gen=32)
+# Qwen1.5-MoE-A2.7B at full width and depth (14.32 B parameters, 28.6 GB
+# in bf16), the dense serving traffic; the warm-up batch's prefill reports
+# the share of expert assignments kept within capacity (factor 1.25)
+SERVE_MOE = dict(SERVE_DENSE, arch="qwen2-moe-a2.7b")
+# the same model trained at full width, its depth cut to the most layers
+# that leave 8 GB of the card's 80 free at the reckoned peak (PERF.md):
+# 5 of 24, 3.47 B parameters, 48.6 GB of state; the dense loss check's lr
+TRAIN_MOE = dict(TRAIN_DENSE, arch="qwen2-moe-a2.7b", n_layers=5)
+# xLSTM-125M at full width and depth: prompts of 4096 tokens, whole chunks
+# of the mLSTM's 256 (no Pallas kernel on this path); decode after a
+# prefill of 3840 tokens must continue forward over 8 teacher-forced steps
+SERVE_XLSTM = dict(SERVE, arch="xlstm-125m", prompt_len=4096,
+                   decode_check=8)
+# the Whisper-small backbone at full width and depth, the dense serving
+# traffic with 4064 // 4 = 1016 stub frames a request: flash bidirectional
+# in the encoder, causal in the decoder
+SERVE_ENCDEC = dict(SERVE_DENSE, arch="whisper-small")
+# xLSTM-125M and Whisper-small trained at full width and depth: 3 timed
+# steps of the train traffic (Whisper's batch with 1024 frames a sequence);
+# the loss check at the griffin's 3e-5 (an Adam step's first-order gain
+# lr x ||g||_1 is ~2-8 nats there)
+TRAIN_SMALL = [dict(TRAIN, arch=arch, steps=3)
+               for arch in ("xlstm-125m", "whisper-small")]
 
 
 def emit(phase: str, **fields) -> None:
@@ -513,9 +556,13 @@ def counted(launches: Dict[str, int]):
 def _profiled(fn, record_shapes: bool = False):
     """Run ``fn`` under ``torch.profiler``: (profile, wall µs, device busy
     µs (kernels and copies, one stream, so no overlap), device µs by
-    kernel name)."""
+    kernel name).  The trace holds the device's activity alone unless
+    ``record_shapes`` asks for the host's ops and their input shapes: with
+    them, reading back a path of ~10^5 small launches takes minutes."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if record_shapes else [])
+    with profile(activities=activities,
                  record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         fn()
@@ -827,37 +874,107 @@ class CountingController(StopAndWaitController):
 
 
 def _layer_counts(cfg) -> Tuple[int, int]:
-    """(attention layers, RG-LRU sublayers) of a dense or griffin model."""
-    if cfg.family == "dense":
+    """(flash launches a forward, RG-LRU sublayers) of a model: one launch
+    an attention layer (the encoder's and the decoder's self-attention for
+    encdec; cross-attention runs the plain chunked attention, as the
+    reference does; xlstm has none)."""
+    if cfg.family in ("dense", "moe"):
         return cfg.n_layers, 0
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers, 0
+    if cfg.family == "xlstm":
+        return 0, 0
     n_attn = cfg.n_layers // 3
     return n_attn, 2 * n_attn + cfg.n_layers % 3
+
+
+@contextlib.contextmanager
+def moe_kept(calls: List[Tuple[torch.Tensor, int]]):
+    """While active, each prompt-length ``moe_block`` call appends its
+    per-expert count of assignments kept within capacity, an (E,) tensor
+    left on the device, and its number of assignments."""
+    real = moe_mod.moe_block
+
+    def counted(p, cfg, x):
+        b, s, _ = x.shape
+        if s > 1:
+            _, _, idx = moe_mod._route(p, cfg, x)
+            per_row = torch.nn.functional.one_hot(
+                idx.reshape(b, -1), cfg.n_experts).sum(dim=1)
+            c = moe_mod.moe_capacity(s, cfg)
+            calls.append((per_row.clamp_max(c).sum(dim=0), idx.numel()))
+        return real(p, cfg, x)
+
+    moe_mod.moe_block = counted
+    try:
+        yield calls
+    finally:
+        moe_mod.moe_block = real
+
+
+def moe_kept_by_layer(params, cfg, batch, n_micro: int) -> torch.Tensor:
+    """(layers, experts): the assignments of ``batch`` kept within
+    capacity, from one forward of each micro-batch without autograd."""
+    calls: List[Tuple[torch.Tensor, int]] = []
+    b = batch["tokens"].shape[0] // n_micro
+    with torch.no_grad(), moe_kept(calls):
+        for i in range(n_micro):
+            loss_fn(params, cfg, {k: v[i * b:(i + 1) * b]
+                                  for k, v in batch.items()})
+    per_call = torch.stack([k for k, _ in calls])  # micro-major
+    return per_call.reshape(n_micro, cfg.n_layers, -1).sum(dim=0)
+
+
+def decode_continues_forward(params, cfg, prompt, full, n: int) -> float:
+    """Max abs difference between ``n`` teacher-forced decode steps after a
+    prefill of all but the prompt's last 256 tokens (a whole mLSTM chunk
+    fewer) and ``full``, the training forward's logits over the prompt."""
+    s = prompt.shape[1] - 256
+    with torch.inference_mode():
+        _, cache = prefill(params, cfg, prompt[:, :s], max_len=s + n)
+        err = 0.0
+        for t in range(s, s + n):
+            logits, cache = decode_step(params, cfg, cache,
+                                        prompt[:, t:t + 1])
+            err = max(err, float((logits[:, 0] - full[:, t]).abs().max()))
+    return err
 
 
 def phase_serve(launches, rec: Recorder, spec: dict = SERVE,
                 name: str = "serve") -> dict:
     """Serve ``spec``'s traffic at full width; each batch's prefill must
-    launch flash once an attention layer and RG-LRU once a recurrent
+    launch flash once an attention layer (encdec: the encoder's
+    bidirectional, the decoder's causal) and RG-LRU once a recurrent
     sublayer."""
+    torch.cuda.empty_cache()  # the models of earlier phases are gone
     cfg = model_configs.get_config(spec["arch"])
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"])
     params = init_model(cfg, gen, DEVICE)
     prompts = make_prompts(cfg, spec["requests"], spec["batch"],
                            spec["prompt_len"], gen, DEVICE)
+    frames = make_frames(cfg, spec["requests"], spec["batch"],
+                         spec["prompt_len"], gen, DEVICE)
+    first = None if frames is None else frames[:1]
     _sync()
     init_s = time.perf_counter() - t0
     n_params = param_count(params)
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    serve_requests(params, cfg, prompts[:1], spec["warmup_gen"],
-                   IterationReporter(None, "warm-up", 1))
+    timing: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    kept: List[Tuple[torch.Tensor, int]] = []
+    with moe_kept(kept):
+        serve_requests(params, cfg, prompts[:1], spec["warmup_gen"],
+                       IterationReporter(None, "warm-up", 1), first)
+    timing["warmup"] = time.perf_counter() - t0
     ctl = CountingController()
     reporter = IterationReporter(ctl, f"serve-{spec['arch']}", priority=1)
     torch.cuda.reset_peak_memory_stats()
     path: Dict[str, int] = {}
     with counted(path), rec.active():
         t0 = time.perf_counter()
-        res = serve_requests(params, cfg, prompts, spec["gen"], reporter)
+        res = serve_requests(params, cfg, prompts, spec["gen"], reporter,
+                             frames)
         seconds = time.perf_counter() - t0
     for w, n in path.items():
         launches[w] = launches.get(w, 0) + n
@@ -872,6 +989,16 @@ def phase_serve(launches, rec: Recorder, spec: dict = SERVE,
     check(path["rg_lru_pallas"] == n_rg * n_batches,
           f"{name}: {path['rg_lru_pallas']} RG-LRU launches, "
           f"expected {n_rg * n_batches}")
+    # launches by the causal flag the recorded calls passed
+    by_mask = {"causal": 0, "bidirectional": 0}
+    for shape, n in rec.counts["flash_attention"].items():
+        causal = bool(rec.calls["flash_attention"][shape][0][3])
+        by_mask["causal" if causal else "bidirectional"] += n
+    if cfg.family == "encdec":
+        want = {"causal": cfg.n_layers * n_batches,
+                "bidirectional": cfg.n_enc_layers * n_batches}
+        check(by_mask == want, f"{name}: flash launches by mask {by_mask}, "
+                               f"expected {want}")
     check(ctl.reports == n_batches * steps,
           f"{name}: the controller received {ctl.reports} reports, "
           f"expected {n_batches * steps}")
@@ -880,28 +1007,41 @@ def phase_serve(launches, rec: Recorder, spec: dict = SERVE,
 
     # forward over the first batch's prompts, held against prefill's
     # last-position logits; its launches are counted apart
+    t0 = time.perf_counter()
     for w in MODEL_WRAPPERS:
         w.launches = 0
     with torch.inference_mode():
-        full, _ = forward(params, cfg, prompts[0])
+        full, _ = forward(params, cfg, prompts[0],
+                          frames=None if frames is None else frames[0])
         fwd_err = float((full[:, -1] - res.prefill_logits[0][:, 0])
                         .abs().max())
         check(bool(torch.isfinite(full[:, -1]).all()),
               "forward: a logit is not finite")
     fwd_launches = {w.__name__: w.launches for w in MODEL_WRAPPERS}
-    del full
     check(fwd_err <= LOGIT_TOL,
           f"forward vs prefill last logits: max abs err {fwd_err} > "
           f"{LOGIT_TOL}")
+    decode_err = None
+    if spec.get("decode_check"):
+        decode_err = decode_continues_forward(params, cfg, prompts[0], full,
+                                              spec["decode_check"])
+        check(decode_err <= LOGIT_TOL,
+              f"{name}: decode after prefill vs forward: max abs err "
+              f"{decode_err} > {LOGIT_TOL}")
+    del full
+    timing["forward_checks"] = time.perf_counter() - t0
 
-    # where a batch's time goes: one batch of 8 tokens under the profiler
+    # where a batch's time goes: one batch under the profiler
+    t0 = time.perf_counter()
     with torch.inference_mode():
         busy = device_busy_share(
             lambda: serve_requests(params, cfg, prompts[:1],
                                    spec["profile_gen"],
-                                   IterationReporter(None, "profile", 1)),
+                                   IterationReporter(None, "profile", 1),
+                                   first),
             f"profiled run of one batch, prefill and "
             f"{spec['profile_gen'] - 1} decode steps")
+    timing["profile"] = time.perf_counter() - t0
     for w in MODEL_WRAPPERS:
         w.launches = 0
 
@@ -910,6 +1050,7 @@ def phase_serve(launches, rec: Recorder, spec: dict = SERVE,
     out = dict(arch=cfg.name, params=n_params, param_bytes=n_bytes,
                dtype=str(cfg.dtype), requests=spec["requests"],
                batch=spec["batch"], prompt_len=spec["prompt_len"],
+               frames=None if frames is None else list(frames[0].shape),
                gen=spec["gen"], init_seconds=init_s, seconds=seconds,
                prefill_ms=[1e3 * t for t in res.prefill_s],
                decode_step_ms_median=statistics.median(step_ms),
@@ -921,30 +1062,70 @@ def phase_serve(launches, rec: Recorder, spec: dict = SERVE,
                decode_tokens_per_s=spec["batch"] * len(step_ms)
                / sum(res.step_s),
                flash_launches=path["flash_attention_fwd"],
+               flash_launches_by_mask=by_mask,
                rg_lru_launches=path["rg_lru_pallas"],
                controller_reports=ctl.reports,
                peak_memory_bytes=peak,
                forward_vs_prefill_max_abs_err=fwd_err,
-               forward_launches=fwd_launches, device_busy=busy)
+               decode_vs_forward_max_abs_err=decode_err,
+               forward_launches=fwd_launches, device_busy=busy,
+               phase_seconds=timing)
+    if kept:
+        n = sum(a for _, a in kept)
+        out["moe_kept_share_warmup_prefill"] = float(
+            sum(k.sum() for k, _ in kept)) / n
+        out["moe_assignments_warmup_prefill"] = n
     emit(name, **out)
     return out
 
 
-def _train_batch(ds: SyntheticLM, step: int) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=DEVICE)
-            for k, v in ds.batch_at(step).items()}
+def _train_batch(ds: SyntheticLM, step: int, cfg) -> Dict[str, torch.Tensor]:
+    """``ds``'s batch ``step`` on the card; an encdec model's also carries
+    stub frames, (B, S // enc_frames_ratio, d_model) float32 from a
+    generator seeded by the step."""
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in ds.batch_at(step).items()}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=DEVICE).manual_seed(
+            ds.seed * 1_000_003 + step)
+        batch["frames"] = torch.randn(
+            (ds.global_batch, ds.seq_len // cfg.enc_frames_ratio,
+             cfg.d_model), generator=gen, device=DEVICE)
+    return batch
 
 
-def _train_flops(cfg, n_params_less_embed: int, tokens: int, seq: int,
-                 seqs: int) -> int:
-    """Model FLOPs of one training step, no remat: 6 N' T for the weights
-    (N' the parameters less the embedding table) plus, per sequence and
-    attention layer, 12 D H over the unmasked (q, k) pairs (Q.K^T and P.V,
-    forward and backward)."""
-    n_attn, _ = _layer_counts(cfg)
-    pairs = _unmasked_pairs(seq, True, cfg.window)
-    return (6 * n_params_less_embed * tokens
-            + 12 * cfg.head_dim * cfg.n_heads * pairs * seqs * n_attn)
+def _train_flops(cfg, params, seq: int, seqs: int) -> int:
+    """Model FLOPs of one training step, no remat: 6 x each weight x the
+    tokens that pass it (the parameters less the embedding table; a routed
+    expert's weights at top_k / n_experts of the tokens; the encoder's over
+    the frames) plus, per sequence, 12 D H over the unmasked (q, k) pairs
+    of each attention layer (Q.K^T and P.V, forward and backward): causal
+    self-attention, the encoder's bidirectional attention over the frames
+    and the decoder's cross-attention to them.  The xLSTM cells' recurrent
+    products are not counted."""
+    def numel(tree) -> int:
+        return sum(t.numel() for t in _leaves(tree))
+
+    tokens = seq * seqs
+    weights = numel(params) - params["embed"].numel()
+    flops = 0
+    if cfg.family == "moe":
+        routed = numel({k: v for k, v in params["layers"]["moe"].items()
+                        if k != "router"})
+        weights -= routed
+        flops += 6 * routed * tokens * cfg.top_k // cfg.n_experts
+    self_attn_layers = {"xlstm": 0, "griffin": _layer_counts(cfg)[0]}.get(
+        cfg.family, cfg.n_layers)
+    pairs = _unmasked_pairs(seq, True, cfg.window) * self_attn_layers
+    if cfg.family == "encdec":
+        frames = seq // cfg.enc_frames_ratio
+        enc = numel(params["enc"]) + numel(params["ln_enc"])
+        weights -= enc
+        flops += 6 * enc * frames * seqs
+        pairs += (_unmasked_pairs(frames, False, 0) * cfg.n_enc_layers
+                  + seq * frames * cfg.n_layers)
+    flops += 6 * weights * tokens
+    return flops + 12 * cfg.head_dim * cfg.n_heads * pairs * seqs
 
 
 def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
@@ -965,7 +1146,6 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
     _sync()
     init_s = time.perf_counter() - t0
     n_params = param_count(state.params)
-    n_embed = state.params["embed"].numel()
     ds = SyntheticLM(cfg.vocab, spec["seq"], spec["batch"],
                      seed=spec["seed"])
     step_fn = build_train_step(cfg, opt_cfg, n_micro)
@@ -974,29 +1154,52 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
     gate = CommGate(ctl, job=job)
     reporter = IterationReporter(ctl, job, priority=1)
 
-    losses, grad_norms, step_s = [], [], []
+    losses, grad_norms, auxes, step_s = [], [], [], []
 
     def one_step(step: int) -> None:
         nonlocal state
-        batch = _train_batch(ds, step)
+        batch = _train_batch(ds, step, cfg)
         gate.wait_for_slot()
         t = time.perf_counter()
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))  # waits for the device
         grad_norms.append(float(metrics["grad_norm"]))
+        auxes.append(float(metrics["aux"]))
         step_s.append(time.perf_counter() - t)
         reporter.report(step_s[-1])
 
+    timing: Dict[str, float] = {}
+    t0 = time.perf_counter()
     p0 = [p.clone() for p in _leaves(state.params)]
+    routed = None
+    if cfg.family == "moe":
+        routed = moe_kept_by_layer(state.params, cfg, _train_batch(ds, 0, cfg),
+                                   n_micro)
     one_step(0)  # warm-up; its gradients are checked through the moments
     # m = (1 - b1) * clipped gradient after the first step
     zero = [i for i, m in enumerate(_leaves(state.opt["m"]))
             if not float(torch.linalg.vector_norm(m)) > 0.0]
     check(not zero, f"{name}: {len(zero)} parameter leaves got a zero "
                     f"gradient in the first step (leaf indices {zero})")
-    witness = first_step_witness(state, p0, _train_batch(ds, 0), cfg,
+    experts = None
+    if routed is not None:
+        # each (layer, expert) slice of the expert leaves has a gradient
+        # exactly where the step-0 batch kept a token for that expert
+        experts = {"no_token_kept": int((routed == 0).sum()),
+                   "of": routed.numel()}
+        for k in ("w_gate", "w_up", "w_down"):
+            m = state.opt["m"]["layers"]["moe"][k].flatten(2)
+            moved = m.norm(dim=-1) > 0
+            experts[f"{k}_with_gradient"] = int(moved.sum())
+            check(torch.equal(moved, routed > 0),
+                  f"{name}: {k}: (layer, expert) slices with a gradient "
+                  f"{int(moved.sum())}, with a token kept "
+                  f"{int((routed > 0).sum())}, not the same slices")
+    witness = first_step_witness(state, p0, _train_batch(ds, 0, cfg), cfg,
                                  opt_cfg, losses[0], grad_norms[0], n_micro)
     del p0
+    timing["warmup_and_witness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
     path: Dict[str, int] = {}
     with counted(path), rec.active():
@@ -1005,9 +1208,12 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
     for w, n in path.items():
         launches[w] = launches.get(w, 0) + n
     peak = torch.cuda.max_memory_allocated()
-    check(all(math.isfinite(x) for x in losses + grad_norms),
-          f"{name}: a loss or grad norm is not finite: {losses} "
-          f"{grad_norms}")
+    check(all(math.isfinite(x) for x in losses + grad_norms + auxes),
+          f"{name}: a loss, grad norm or aux loss is not finite: {losses} "
+          f"{grad_norms} {auxes}")
+    if cfg.family == "moe":
+        check(all(a > 0.0 for a in auxes),
+              f"{name}: a zero MoE aux loss: {auxes}")
     n_attn, n_rg = _layer_counts(cfg)
     want = {"flash_attention_fwd": 2 * n_attn * n_micro * steps,
             "rg_lru_pallas": 2 * n_rg * n_micro * steps,
@@ -1018,27 +1224,31 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
           f"{name}: the controller received {ctl.reports} reports, "
           f"expected {1 + steps}")
 
+    timing["timed_steps"] = time.perf_counter() - t0
     # the loss check: the step-0 batch again, no warm-up
+    t0 = time.perf_counter()
     check_fn = build_train_step(cfg, AdamWConfig(lr=spec["check_lr"],
                                                  warmup_steps=0), n_micro)
-    batch0 = _train_batch(ds, 0)
+    batch0 = _train_batch(ds, 0, cfg)
     check_losses = []
     for _ in range(4):
         state, metrics = check_fn(state, batch0)
         check_losses.append(float(metrics["loss"]))
     check(all(math.isfinite(x) for x in check_losses),
           f"{name}: repeated-batch losses {check_losses}")
+    timing["loss_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for w in MODEL_WRAPPERS:
         w.launches = 0
     busy = train_step_profile(lambda: check_fn(state, batch0),
                               spec["seq"], cfg.vocab)
+    timing["profile"] = time.perf_counter() - t0
     for w in MODEL_WRAPPERS:
         w.launches = 0
 
     tokens = spec["batch"] * spec["seq"]
     med = statistics.median(step_s[1:])
-    flops = _train_flops(cfg, n_params - n_embed, tokens, spec["seq"],
-                         spec["batch"])
+    flops = _train_flops(cfg, state.params, spec["seq"], spec["batch"])
     timed = sorted(1e3 * t for t in step_s[1:])
     out = dict(arch=cfg.name, params=n_params, dtype=str(cfg.dtype),
                layers=cfg.n_layers,
@@ -1050,21 +1260,23 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
                step_ms=timed, step_ms_median=1e3 * med,
                step_ms_p90=timed[int(0.9 * (len(timed) - 1))],
                tokens_per_s=tokens / med, losses=losses,
-               grad_norms=grad_norms, check_lr=spec["check_lr"],
+               grad_norms=grad_norms, aux=auxes,
+               experts=experts,
+               check_lr=spec["check_lr"],
                repeated_batch_losses=check_losses, first_step=witness,
                peak_memory_bytes=peak, model_flops_per_step=flops,
                mfu=flops / (med * PEAK_BF16_OPS_PER_S),
                launches={k: path[k] for k in want},
                launches_per_step={k: path[k] // steps for k in want},
-               controller_reports=ctl.reports, device_busy=busy)
+               controller_reports=ctl.reports, device_busy=busy,
+               phase_seconds=timing)
     del state
     torch.cuda.empty_cache()
     emit(name, **out)
     check(check_losses[-1] < check_losses[0],
           f"{name}: the repeated batch's loss did not fall: {check_losses}")
     lo, hi = FIRST_STEP_RATIO
-    check(witness["predicted_dloss"] < 0.0
-          and lo <= witness["ratio"] <= hi,
+    check(witness["predicted_dloss"] < 0.0 and lo <= witness["ratio"] <= hi,
           f"{name}: the first step's loss change is not its first-order "
           f"prediction within {FIRST_STEP_RATIO}: {witness}")
     return out
@@ -1386,16 +1598,31 @@ def _gates(seed: int, shape: Tuple[int, ...]):
     return a, torch.randn(shape, generator=g, device=DEVICE)
 
 
-def model_kernel_cases(serve: Recorder, train: Recorder,
-                       serve_dense: Recorder, train_dense: Recorder
-                       ) -> Dict[str, dict]:
+def _flash_inputs(rec: Recorder, causal: bool) -> list:
+    """The first recorded flash launch with this causal flag."""
+    return next(a for a in rec.inputs("flash_attention")
+                if bool(a[3]) == causal)
+
+
+def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
     """The flash and RG-LRU kernels on the serve and train paths' first
     launches, then on synthetic cases."""
     cases: Dict[str, dict] = {}
-    # Llama-3-8B: head dim 128, 32 q heads over 8 kv heads, causal
-    for name, rec in (("flash_serve_dense", serve_dense),
-                      ("flash_train_dense", train_dense)):
-        q, k, v, causal, window = rec.inputs("flash_attention")[0]
+    serve, train = recs["serve"], recs["train"]
+    # Llama-3-8B: head dim 128, 32 q heads over 8 kv heads, causal;
+    # Qwen1.5-MoE: head dim 128, one q head a kv head, causal; Whisper:
+    # head dim 64, 12 heads, the encoder bidirectional over the frames, the
+    # decoder causal over the prompt
+    for name, rec, causal in (
+            ("flash_serve_dense", recs["serve_dense"], True),
+            ("flash_train_dense", recs["train_dense"], True),
+            ("flash_serve_moe", recs["serve_moe"], True),
+            ("flash_train_moe", recs["train_moe"], True),
+            ("flash_serve_encdec_encoder", recs["serve_encdec"], False),
+            ("flash_serve_encdec_decoder", recs["serve_encdec"], True),
+            ("flash_train_small_encoder", recs["train_small"], False),
+            ("flash_train_small_decoder", recs["train_small"], True)):
+        q, k, v, causal, window = _flash_inputs(rec, causal)
         cases[name] = _flash_case(q, k, v, bool(causal), int(window),
                                   main_path=True)
         del q, k, v
@@ -1462,8 +1689,7 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
 
 
 def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
-                  serve: Recorder, train: Recorder, serve_dense: Recorder,
-                  train_dense: Recorder) -> dict:
+                  recs: Dict[str, Recorder]) -> dict:
     cases: Dict[str, dict] = {}
     # the main path's fill launches all take the one-word route masks
     links = {rec_name: sorted({shape[1][2] for shape in rec.counts[
@@ -1521,7 +1747,7 @@ def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
         if name.startswith("score_") and "max_abs_err" in case:
             check(case["max_abs_err"] <= SCORE_TOL,
                   f"{name}: kernel vs plain {case['max_abs_err']}")
-    cases.update(model_kernel_cases(serve, train, serve_dense, train_dense))
+    cases.update(model_kernel_cases(recs))
     emit("kernels", tolerance={
         "fill": 0.0, "score": SCORE_TOL, "rg_lru": RG_LRU_TOL,
         "rg_lru_bwd": 0.0,
@@ -1597,8 +1823,7 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
                  "shape", "window", "ms", "device_us_per_launch",
                  "device_traced", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "max_abs_err", "normwise_err")}
-                 for n in ("flash_serve", "flash_train", "flash_serve_dense",
-                           "flash_train_dense")},
+                 for n in MAIN_PATH_FLASH},
              device_us_per_launch={n: v for n, v in device_us.items()
                                    if n.startswith("flash_")},
              **_redesign("flash_attention_fwd", ptxas)),
@@ -1637,6 +1862,10 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
 
 
 EXPERIMENT_JOBS = 1000
+MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
+                   "flash_train_dense", "flash_serve_moe", "flash_train_moe",
+                   "flash_serve_encdec_encoder", "flash_serve_encdec_decoder",
+                   "flash_train_small_encoder", "flash_train_small_decoder")
 
 
 def main() -> int:
@@ -1653,18 +1882,25 @@ def main() -> int:
     ptxas = phase_build()
     launches: Dict[str, int] = {}
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
-    serve, train = Recorder(), Recorder()
-    serve_dense, train_dense = Recorder(), Recorder()
+    recs = {name: Recorder() for name in (
+        "serve", "train", "serve_dense", "train_dense", "serve_moe",
+        "train_moe", "serve_encdec", "train_small")}
     phase_trace_corpus(launches, corpus)
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_planner(launches, planner)
-    phase_serve(launches, serve)
-    phase_train(launches, train)
-    torch.cuda.empty_cache()  # the griffin models are gone with their phases
-    phase_serve(launches, serve_dense, SERVE_DENSE, "serve_dense")
-    phase_train(launches, train_dense, TRAIN_DENSE, "train_dense")
-    cases = phase_kernels(corpus, loop, planner, serve, train, serve_dense,
-                          train_dense)
+    phase_serve(launches, recs["serve"])
+    phase_train(launches, recs["train"])
+    phase_serve(launches, recs["serve_dense"], SERVE_DENSE, "serve_dense")
+    phase_train(launches, recs["train_dense"], TRAIN_DENSE, "train_dense")
+    phase_serve(launches, recs["serve_moe"], SERVE_MOE, "serve_moe")
+    phase_train(launches, recs["train_moe"], TRAIN_MOE, "train_moe")
+    # xLSTM's path launches no kernel: its recorder holds no case
+    phase_serve(launches, Recorder(), SERVE_XLSTM, "serve_xlstm")
+    phase_serve(launches, recs["serve_encdec"], SERVE_ENCDEC, "serve_encdec")
+    for spec in TRAIN_SMALL:
+        phase_train(launches, recs["train_small"], spec,
+                    f"train_small_{spec['arch']}")
+    cases = phase_kernels(corpus, loop, planner, recs)
     print(json.dumps(kernel_summary(launches, cases, ptxas)), flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
     print(info["nvidia_smi"], flush=True)

@@ -1,41 +1,44 @@
 """Configurations of the port: the Metronome testbed, and the model
-architectures the port serves so far (one module per architecture)."""
+architectures (one module per architecture, as the JAX package's)."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-# the JAX package's other architectures wait for their model families
-# (ROADMAP A13b: moe, xlstm, encdec)
 ARCHS: List[str] = [
+    "arctic_480b",
+    "qwen2_moe_a2_7b",
     "internlm2_20b",
     "qwen3_14b",
     "llama3_8b",
     "starcoder2_15b",
     "qwen2_vl_72b",
+    "whisper_small",
     "recurrentgemma_2b",
+    "xlstm_125m",
 ]
 
 _ALIAS: Dict[str, str] = {a.replace("_", "-"): a for a in ARCHS}
 _ALIAS.update({a: a for a in ARCHS})
 # assignment ids use dashes/dots
 _ALIAS.update({
+    "arctic-480b": "arctic_480b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "internlm2-20b": "internlm2_20b",
     "qwen3-14b": "qwen3_14b",
     "llama3-8b": "llama3_8b",
     "starcoder2-15b": "starcoder2_15b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-small": "whisper_small",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-125m": "xlstm_125m",
 })
 
 
 def canonical(arch: str) -> str:
-    """The module name of an architecture id (dashes or underscores)."""
-    try:
-        return _ALIAS[arch]
-    except KeyError:
-        raise KeyError(f"architecture {arch!r} is not ported yet; the port "
-                       f"has {ARCHS} (ROADMAP A13b)") from None
+    """The module name of an architecture id (dashes or underscores);
+    ``KeyError`` for an unknown one, as the JAX package's registry."""
+    return _ALIAS[arch]
 
 
 def get_config(arch: str):

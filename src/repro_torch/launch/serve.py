@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -57,20 +57,39 @@ def make_prompts(cfg: ModelConfig, requests: int, batch: int,
     return list(tokens.to(device).split(batch))
 
 
+def make_frames(cfg: ModelConfig, requests: int, batch: int,
+                prompt_len: int, generator: torch.Generator,
+                device: torch.device) -> Optional[List[torch.Tensor]]:
+    """An encdec model's stub frame embeddings, (B, prompt_len //
+    enc_frames_ratio, d_model) float32 a batch of ``batch``, drawn from
+    ``generator`` (None for the other families), as the JAX package's
+    serving driver gives them."""
+    if cfg.family != "encdec":
+        return None
+    n = max(prompt_len // cfg.enc_frames_ratio, 1)
+    frames = torch.randn((requests, n, cfg.d_model), generator=generator,
+                         device=generator.device)
+    return list(frames.to(device).split(batch))
+
+
 def serve_requests(params, cfg: ModelConfig, prompts: Sequence[torch.Tensor],
-                   gen: int, reporter: IterationReporter) -> ServeResult:
+                   gen: int, reporter: IterationReporter,
+                   frames: Optional[Sequence[torch.Tensor]] = None
+                   ) -> ServeResult:
     """Serve each (B, S) prompt batch in turn: one ``prefill`` with room for
     ``gen`` tokens, then ``gen - 1`` greedy decode steps, each step's wall
-    time (to the end of its device work) reported to ``reporter``."""
+    time (to the end of its device work) reported to ``reporter``.
+    ``frames``: an encdec model's frame embeddings, one tensor a batch."""
     serve = build_serve_step(cfg)
     out = ServeResult([], [], [], [], True)
     with torch.inference_mode():
         finite = None
-        for batch in prompts:
+        for i, batch in enumerate(prompts):
             dev = batch.device
             t0 = time.perf_counter()
-            logits, cache = prefill(params, cfg, batch,
-                                    max_len=batch.shape[1] + gen)
+            logits, cache = prefill(
+                params, cfg, batch, max_len=batch.shape[1] + gen,
+                frames=None if frames is None else frames[i])
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
             finite = torch.isfinite(logits).all() if finite is None \
                 else finite & torch.isfinite(logits).all()
@@ -115,8 +134,10 @@ def main(argv: Sequence[str] | None = None) -> None:
     params = init_model(cfg, generator, dev)
     prompts = make_prompts(cfg, args.requests, args.batch, args.prompt_len,
                            generator, dev)
+    frames = make_frames(cfg, args.requests, args.batch, args.prompt_len,
+                         generator, dev)
     t_start = time.perf_counter()
-    res = serve_requests(params, cfg, prompts, args.gen, reporter)
+    res = serve_requests(params, cfg, prompts, args.gen, reporter, frames)
     dt = time.perf_counter() - t_start
     done = 0
     for toks in res.tokens:

@@ -7,6 +7,9 @@ Without ``--full`` it trains the architecture's smoke config; ``--full``
 takes the full-size config on one card (no mesh: sharding waits for
 ROADMAP A15).  ``--device cpu`` runs the plain PyTorch versions on the
 host; weights are random, drawn from ``--seed``, which also seeds the data.
+The synthetic batches carry tokens and labels only, as the reference's do,
+so an encdec model (``--arch whisper-small``) fails for want of its frames,
+as it does there (ROADMAP C5).
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ from .config import ModelConfig
 from .model import Tree
 
 # leaves the JAX init keeps in float32 whatever the parameter dtype
-_FLOAT32_LEAVES = frozenset({"lam"})
+_FLOAT32_LEAVES = frozenset({"lam", "router"})
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig,

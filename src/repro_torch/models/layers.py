@@ -195,7 +195,12 @@ def chunked_attention(
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
-                   d_model: Optional[int] = None) -> Dict:
+                   d_model: Optional[int] = None, cross: bool = False
+                   ) -> Dict:
+    """Projections (and the qk-norm scales); a cross-attention layer
+    (``cross``) has the same parameters, its keys and values projected from
+    another sequence by ``attention_layer``'s ``kv_source``."""
+    del cross
     d = d_model or cfg.d_model
     hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv
     std = 0.02

@@ -1,24 +1,25 @@
-"""Model assembly: init / forward + loss / prefill / decode (the dense and
-griffin families).
+"""Model assembly: init / forward + loss / prefill / decode for all families.
 
 Families:
   dense   -- pre-norm GQA transformer (llama3/qwen3/internlm2/starcoder2,
              qwen2-vl backbone with M-RoPE)
+  moe     -- dense skeleton with routed-expert FFN (+ shared experts /
+             arctic's parallel dense residual)
   griffin -- RecurrentGemma: repeating (RG-LRU, RG-LRU, local attention)
              groups, every temporal block followed by an MLP, and a tail of
              RG-LRU sublayers when the layer count is not a multiple of 3
+  xlstm   -- alternating sLSTM / mLSTM blocks (no separate FFN)
+  encdec  -- whisper backbone: bidirectional encoder over stub frame
+             embeddings + causal decoder with cross-attention
 
 The JAX package's ``models/model.py`` op for op; parameters keep its tree,
-with the per-layer weights of ``layers`` (dense), ``groups`` and ``tail``
-(griffin) stacked on a leading axis, and its ``lax.scan`` over layers is a
-Python loop.  With ``cfg.remat`` the training forward recomputes each layer
-(dense) or each group and tail layer (griffin) in the backward pass
-(``torch.utils.checkpoint``, nothing saved inside, as the JAX package's
-``nothing_saveable``).  Serving runs without autograd; caches are updated in
-place.
-
-The other families of the JAX package (moe, xlstm, encdec) are not ported
-yet: the port raises ``NotImplementedError`` naming their ROADMAP item.
+with the per-layer weights of ``layers`` (dense, moe), ``groups`` and
+``tail`` (griffin), ``pairs`` (xlstm), ``enc`` and ``dec`` (encdec) stacked
+on a leading axis, and its ``lax.scan`` over layers is a Python loop.  With
+``cfg.remat`` the training forward recomputes each layer, group or pair in
+the backward pass (``torch.utils.checkpoint``, nothing saved inside, as the
+JAX package's ``nothing_saveable``).  Serving runs without autograd; caches
+are updated in place.
 """
 from __future__ import annotations
 
@@ -31,25 +32,11 @@ import torch.utils.checkpoint
 from .. import _device
 from .._tree import tree_map
 from . import layers as L
+from . import moe as MOE
 from . import recurrent as R
 from .config import ATTN, RGLRU, ModelConfig
 
 Tree = Dict[str, Union["Tree", torch.Tensor]]
-
-_PENDING = {
-    "moe": "ROADMAP A13b (moe family, models/moe.py)",
-    "xlstm": "ROADMAP A13b (xlstm family, sLSTM/mLSTM cells)",
-    "encdec": "ROADMAP A13b (encdec family)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "griffin"):
-        if cfg.family in _PENDING:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet, "
-                f"see {_PENDING[cfg.family]}")
-        raise ValueError(cfg.family)
 
 
 def _stack(trees: List[Tree]) -> Tree:
@@ -77,15 +64,19 @@ def _n_groups(cfg: ModelConfig) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 def _dense_layer_init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: routed experts are not ported yet, see "
-            f"{_PENDING['moe']}")
     p: Tree = {"ln_attn": L.init_rmsnorm(cfg.d_model, cfg.param_dtype,
                                          gen.device)}
     p["attn"] = L.init_attention(cfg, gen)
     p["ln_mlp"] = L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device)
-    p["mlp"] = L.init_mlp(cfg, gen)
+    if cfg.n_experts > 0:
+        p["moe"] = MOE.init_moe(cfg, gen)
+        if cfg.dense_residual:
+            p["mlp"] = L.init_mlp(cfg, gen)
+        if cfg.n_shared > 0:
+            p["shared"] = L.init_mlp(
+                cfg, gen, d_ff=cfg.n_shared * (cfg.moe_d_ff or cfg.d_ff))
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen)
     return p
 
 
@@ -99,13 +90,40 @@ def _griffin_sub_init(cfg: ModelConfig, kind: str,
     return p
 
 
+def _xlstm_pair_init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
+    return {"ln_s": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
+            "slstm": R.init_slstm(cfg, gen),
+            "ln_m": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
+            "mlstm": R.init_mlstm(cfg, gen)}
+
+
+def _enc_layer_init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
+    return {"ln_attn": L.init_layernorm(cfg.d_model, cfg.param_dtype,
+                                        gen.device),
+            "attn": L.init_attention(cfg, gen),
+            "ln_mlp": L.init_layernorm(cfg.d_model, cfg.param_dtype,
+                                       gen.device),
+            "mlp": L.init_mlp(cfg, gen)}
+
+
+def _dec_layer_init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
+    return {"ln_self": L.init_layernorm(cfg.d_model, cfg.param_dtype,
+                                        gen.device),
+            "self_attn": L.init_attention(cfg, gen),
+            "ln_cross": L.init_layernorm(cfg.d_model, cfg.param_dtype,
+                                         gen.device),
+            "cross_attn": L.init_attention(cfg, gen, cross=True),
+            "ln_mlp": L.init_layernorm(cfg.d_model, cfg.param_dtype,
+                                       gen.device),
+            "mlp": L.init_mlp(cfg, gen)}
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device: Union[str, torch.device] = "cuda") -> Tree:
     """Random parameters with the JAX init's shapes, scales and dtypes,
     drawn from ``generator`` on its own device and placed on ``device``.
     Raises when a CUDA device is asked for and there is none."""
     dev = _device.resolve(device)
-    _check_family(cfg)
     gen = generator
     p: Tree = {
         "embed": L.truncated_normal(gen, (cfg.vocab, cfg.d_model),
@@ -114,10 +132,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                                    cfg.param_dtype, 0.02),
         "ln_f": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
     }
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         p["layers"] = _stack([_dense_layer_init(cfg, gen)
                               for _ in range(cfg.n_layers)])
-    else:
+    elif cfg.family == "griffin":
         n_groups, n_tail = _n_groups(cfg)
         p["groups"] = _stack([{"rg1": _griffin_sub_init(cfg, RGLRU, gen),
                                "rg2": _griffin_sub_init(cfg, RGLRU, gen),
@@ -126,6 +144,21 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         if n_tail:
             p["tail"] = _stack([_griffin_sub_init(cfg, RGLRU, gen)
                                 for _ in range(n_tail)])
+    elif cfg.family == "xlstm":
+        if cfg.n_layers % 2:
+            raise ValueError(f"xlstm: {cfg.n_layers} layers is not a whole "
+                             "number of sLSTM/mLSTM pairs")
+        p["pairs"] = _stack([_xlstm_pair_init(cfg, gen)
+                             for _ in range(cfg.n_layers // 2)])
+    elif cfg.family == "encdec":
+        p["enc"] = _stack([_enc_layer_init(cfg, gen)
+                           for _ in range(cfg.n_enc_layers)])
+        p["dec"] = _stack([_dec_layer_init(cfg, gen)
+                           for _ in range(cfg.n_layers)])
+        p["ln_enc"] = L.init_layernorm(cfg.d_model, cfg.param_dtype,
+                                       gen.device)
+    else:
+        raise ValueError(cfg.family)
     return tree_map(lambda t: t.to(dev), p)
 
 
@@ -142,8 +175,8 @@ def param_count(params: Tree) -> int:
 
 def _dense_block_seq(cfg: ModelConfig, x, lp, positions, cache=None,
                      cache_index=None):
-    """Pre-norm attention and MLP residuals.  (The JAX package also returns
-    the MoE aux loss here; for the dense family it is zero.)"""
+    """Pre-norm attention and MLP (or MoE) residuals: (x, moe aux loss,
+    cache); the aux loss is a float32 zero without experts."""
     if cfg.bf16_grad_barrier:
         x = L.grad_bf16_barrier(x)
     h, new_cache = L.attention_layer(
@@ -151,8 +184,17 @@ def _dense_block_seq(cfg: ModelConfig, x, lp, positions, cache=None,
         positions=positions, causal=True, cache=cache,
         cache_index=cache_index)
     x = x + h
-    y = L.mlp(lp["mlp"], L.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps))
-    return x + y, new_cache
+    y_in = L.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.n_experts > 0:
+        y, aux = MOE.moe_block(lp["moe"], cfg, y_in)
+        if cfg.dense_residual:
+            y = y + L.mlp(lp["mlp"], y_in)
+        if cfg.n_shared > 0:
+            y = y + L.mlp(lp["shared"], y_in)
+    else:
+        y = L.mlp(lp["mlp"], y_in)
+    return x + y, aux, new_cache
 
 
 def _griffin_sub_seq(cfg: ModelConfig, x, sp, kind, positions, state=None,
@@ -170,6 +212,66 @@ def _griffin_sub_seq(cfg: ModelConfig, x, sp, kind, positions, state=None,
     return x, new_state, new_cache
 
 
+def _xlstm_pair_seq(cfg: ModelConfig, x, pp, return_state: bool = False):
+    """An sLSTM and an mLSTM residual over whole sequences; with
+    ``return_state`` also the two cells' final states."""
+    y, s_state = R.slstm_scan(pp["slstm"],
+                              L.rmsnorm(pp["ln_s"], x, cfg.norm_eps))
+    x = x + y
+    out = R.mlstm_chunkwise(pp["mlstm"], cfg,
+                            L.rmsnorm(pp["ln_m"], x, cfg.norm_eps),
+                            return_state=return_state)
+    if not return_state:
+        return x + out
+    y, m_state = out
+    return x + y, s_state, m_state
+
+
+def _dec_layer_seq(cfg: ModelConfig, x, lp, enc_out, positions=None,
+                   cache=None, cache_index=None):
+    """Decoder layer: causal self-attention, cross-attention over the
+    encoder's output, MLP; layernorm before each."""
+    h, new_cache = L.attention_layer(
+        lp["self_attn"], cfg, L.layernorm(lp["ln_self"], x, cfg.norm_eps),
+        positions=positions, causal=True, cache=cache,
+        cache_index=cache_index)
+    x = x + h
+    h, _ = L.attention_layer(
+        lp["cross_attn"], cfg, L.layernorm(lp["ln_cross"], x, cfg.norm_eps),
+        kv_source=enc_out)
+    x = x + h
+    x = x + L.mlp(lp["mlp"], L.layernorm(lp["ln_mlp"], x, cfg.norm_eps))
+    return x, new_cache
+
+
+def _encoder(params: Tree, cfg: ModelConfig,
+             frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (bidirectional).  The JAX
+    package passes positions 0..F-1 explicitly; the port passes None, the
+    same positions, so that on the card the frames take the flash kernel."""
+    x = frames.to(cfg.dtype)
+
+    def body(x, lp):
+        h, _ = L.attention_layer(
+            lp["attn"], cfg, L.layernorm(lp["ln_attn"], x, cfg.norm_eps),
+            causal=False)
+        x = x + h
+        return x + L.mlp(lp["mlp"],
+                         L.layernorm(lp["ln_mlp"], x, cfg.norm_eps))
+
+    body = _maybe_remat(body, cfg)
+    for lp in _unstack(params, "enc", cfg.n_enc_layers):
+        x = body(x, lp)
+    return L.layernorm(params["ln_enc"], x, cfg.norm_eps)
+
+
+def _need_frames(cfg: ModelConfig, frames: Optional[torch.Tensor]) -> None:
+    if frames is None:
+        raise ValueError(
+            f"{cfg.name}: encdec needs stub frame embeddings: pass frames, "
+            f"(B, S // {cfg.enc_frames_ratio}, {cfg.d_model})")
+
+
 def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x.to(cfg.logit_dtype) @ params["head"].to(cfg.logit_dtype)
@@ -185,7 +287,7 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r}: the port recomputes "
             "everything ('nothing'); saving matmul outputs ('dots') comes "
-            "with the families that use it (ROADMAP A13b)")
+            "with the first config that uses it")
 
     def remat(*args):
         if not torch.is_grad_enabled():
@@ -201,40 +303,55 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
 # ---------------------------------------------------------------------------
 
 def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward over whole sequences (no cache). tokens: (B, S) ->
-    (logits (B, S, V) in ``cfg.logit_dtype``, moe_aux_loss); the dense and
-    griffin families have no MoE, so the aux loss is a float32 zero.
-    ``positions``: (B, S), or (3, B, S) for M-RoPE; None for 0..S-1."""
-    _check_family(cfg)
+    (logits (B, S, V) in ``cfg.logit_dtype``, moe_aux_loss), the aux loss
+    a float32 scalar summed over the layers (zero without experts).
+    ``positions``: (B, S), or (3, B, S) for M-RoPE; None for 0..S-1.
+    ``frames``: the encdec family's stub frame embeddings (B, F, d_model)."""
     x = params["embed"][tokens].to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "dense":
-        def layer(x, lp):
-            return _dense_block_seq(cfg, x, lp, positions)[0]
+    if cfg.family in ("dense", "moe"):
+        def layer(x, aux, lp):
+            x, a, _ = _dense_block_seq(cfg, x, lp, positions)
+            return x, aux + a
 
         layer = _maybe_remat(layer, cfg)
         for lp in _unstack(params, "layers", cfg.n_layers):
-            x = layer(x, lp)
-        return _logits(params, cfg, x), aux
-    n_groups, n_tail = _n_groups(cfg)
+            x, aux = layer(x, aux, lp)
+    elif cfg.family == "griffin":
+        n_groups, n_tail = _n_groups(cfg)
 
-    def body(x, gp):
-        x, _, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
-        x, _, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
-        x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions)
-        return x
+        def body(x, gp):
+            x, _, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
+            x, _, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
+            x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions)
+            return x
 
-    def tbody(x, tp):
-        x, _, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
-        return x
+        def tbody(x, tp):
+            x, _, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
+            return x
 
-    body, tbody = _maybe_remat(body, cfg), _maybe_remat(tbody, cfg)
-    for gp in _unstack(params, "groups", n_groups):
-        x = body(x, gp)
-    for tp in _unstack(params, "tail", n_tail):
-        x = tbody(x, tp)
+        body, tbody = _maybe_remat(body, cfg), _maybe_remat(tbody, cfg)
+        for gp in _unstack(params, "groups", n_groups):
+            x = body(x, gp)
+        for tp in _unstack(params, "tail", n_tail):
+            x = tbody(x, tp)
+    elif cfg.family == "xlstm":
+        body = _maybe_remat(lambda x, pp: _xlstm_pair_seq(cfg, x, pp), cfg)
+        for pp in _unstack(params, "pairs", cfg.n_layers // 2):
+            x = body(x, pp)
+    elif cfg.family == "encdec":
+        _need_frames(cfg, frames)
+        enc_out = _encoder(params, cfg, frames)
+        body = _maybe_remat(
+            lambda x, lp, enc: _dec_layer_seq(cfg, x, lp, enc)[0], cfg)
+        for lp in _unstack(params, "dec", cfg.n_layers):
+            x = body(x, lp, enc_out)
+    else:
+        raise ValueError(cfg.family)
     return _logits(params, cfg, x), aux
 
 
@@ -269,7 +386,8 @@ def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Next-token cross entropy (+ MoE load-balance aux); labels < 0 are
     masked.  Returns (total, {"ce", "aux", "tokens"})."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          positions=batch.get("positions"))
+                          positions=batch.get("positions"),
+                          frames=batch.get("frames"))
     labels = batch["labels"]
     valid = labels >= 0
     ce = _TokenCrossEntropy.apply(logits, labels.clamp_min(0).long()) * valid
@@ -288,70 +406,121 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> Tree:
     """Decode state. Attention caches are in ``cfg.dtype``.
 
-    Dense: a (n_layers, B, max_len, n_kv, head_dim) key and value cache.
-    Griffin: the decode cache is a ring buffer of the window size; prefill
-    uses a full-length buffer instead (and decode after prefill keeps it,
-    so it attends over every earlier position: ROADMAP C3)."""
-    _check_family(cfg)
+    Dense, moe: a (n_layers, B, max_len, n_kv, head_dim) key and value
+    cache.  Griffin: the decode cache is a ring buffer of the window size;
+    prefill uses a full-length buffer instead (and decode after prefill
+    keeps it, so it attends over every earlier position: ROADMAP C3).
+    Xlstm: the cells' float32 states.  Encdec: the decoder's key and value
+    cache and the encoder's output over ``max_len // enc_frames_ratio``
+    frames (prefill replaces it with the prompt's)."""
     dev = _device.resolve(device)
     hd, kv = cfg.head_dim, cfg.n_kv
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    def zeros(*shape, dtype=cfg.dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
-    if cfg.family == "dense":
+    def full(value, *shape):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+
+    index = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.family in ("dense", "moe"):
         return {"k": zeros(cfg.n_layers, batch, max_len, kv, hd),
                 "v": zeros(cfg.n_layers, batch, max_len, kv, hd),
-                "index": torch.zeros((), dtype=torch.int32, device=dev)}
-    n_groups, n_tail = _n_groups(cfg)
-    win = max_len if prefill else min(cfg.window or max_len, max_len)
-    w = cfg.lru_width or cfg.d_model
-    cache: Tree = {
-        "k": zeros(n_groups, batch, win, kv, hd),
-        "v": zeros(n_groups, batch, win, kv, hd),
-        "conv": zeros(n_groups, 2, batch, cfg.conv_width - 1, w),
-        "h": zeros(n_groups, 2, batch, w),
-        "index": torch.zeros((), dtype=torch.int32, device=dev),
-    }
-    if n_tail:
-        cache["tail_conv"] = zeros(n_tail, batch, cfg.conv_width - 1, w)
-        cache["tail_h"] = zeros(n_tail, batch, w)
-    return cache
+                "index": index}
+    if cfg.family == "griffin":
+        n_groups, n_tail = _n_groups(cfg)
+        win = max_len if prefill else min(cfg.window or max_len, max_len)
+        w = cfg.lru_width or cfg.d_model
+        cache: Tree = {
+            "k": zeros(n_groups, batch, win, kv, hd),
+            "v": zeros(n_groups, batch, win, kv, hd),
+            "conv": zeros(n_groups, 2, batch, cfg.conv_width - 1, w),
+            "h": zeros(n_groups, 2, batch, w),
+            "index": index,
+        }
+        if n_tail:
+            cache["tail_conv"] = zeros(n_tail, batch, cfg.conv_width - 1, w)
+            cache["tail_h"] = zeros(n_tail, batch, w)
+        return cache
+    if cfg.family == "xlstm":
+        n_pairs = cfg.n_layers // 2
+        nh = cfg.n_heads
+        hd2 = cfg.d_model // nh
+        d = cfg.d_model
+        f32 = torch.float32
+        return {
+            "s_c": zeros(n_pairs, batch, d, dtype=f32),
+            "s_n": zeros(n_pairs, batch, d, dtype=f32),
+            "s_m": full(-1e30, n_pairs, batch, d),
+            "m_C": zeros(n_pairs, batch, nh, hd2, hd2, dtype=f32),
+            "m_n": zeros(n_pairs, batch, nh, hd2, dtype=f32),
+            "m_m": full(-30.0, n_pairs, batch, nh),
+            "index": index,
+        }
+    if cfg.family == "encdec":
+        enc_len = max(max_len // cfg.enc_frames_ratio, 1)
+        return {"k": zeros(cfg.n_layers, batch, max_len, kv, hd),
+                "v": zeros(cfg.n_layers, batch, max_len, kv, hd),
+                "enc_out": zeros(batch, enc_len, cfg.d_model),
+                "index": index}
+    raise ValueError(cfg.family)
+
+
+_XLSTM_STATE = (("s_c", "c"), ("s_n", "n"), ("s_m", "m"))
+_MLSTM_STATE = (("m_C", "C"), ("m_n", "n"), ("m_m", "m"))
 
 
 @torch.no_grad()
 def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Tree]:
     """Process the prompt, build the decode state. Returns (last_logits
     (B, 1, V), cache); ``max_len`` reserves cache room for decoding.  Runs
     on the device of the parameters, without autograd."""
-    _check_family(cfg)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), prefill=True,
                        device=params["embed"].device)
     x = params["embed"][tokens].to(cfg.dtype)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
-            x, _ = _dense_block_seq(cfg, x, lp, positions,
-                                    cache=(cache["k"][i], cache["v"][i]),
-                                    cache_index=0)
-        cache["index"].fill_(s)
-        return _logits(params, cfg, x[:, -1:]), cache
-    n_groups, n_tail = _n_groups(cfg)
-    for i, gp in enumerate(_unstack(params, "groups", n_groups)):
-        x, s1, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
-        x, s2, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
-        x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions,
-                                   cache=(cache["k"][i], cache["v"][i]),
-                                   cache_index=0)
-        for j, st in enumerate((s1, s2)):
-            cache["conv"][i, j] = st["conv"]
-            cache["h"][i, j] = st["h"]
-    for i, tp in enumerate(_unstack(params, "tail", n_tail)):
-        x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
-        cache["tail_conv"][i] = st["conv"]
-        cache["tail_h"][i] = st["h"]
+            x, _, _ = _dense_block_seq(cfg, x, lp, positions,
+                                       cache=(cache["k"][i], cache["v"][i]),
+                                       cache_index=0)
+    elif cfg.family == "griffin":
+        n_groups, n_tail = _n_groups(cfg)
+        for i, gp in enumerate(_unstack(params, "groups", n_groups)):
+            x, s1, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
+            x, s2, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
+            x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions,
+                                       cache=(cache["k"][i], cache["v"][i]),
+                                       cache_index=0)
+            for j, st in enumerate((s1, s2)):
+                cache["conv"][i, j] = st["conv"]
+                cache["h"][i, j] = st["h"]
+        for i, tp in enumerate(_unstack(params, "tail", n_tail)):
+            x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
+            cache["tail_conv"][i] = st["conv"]
+            cache["tail_h"][i] = st["h"]
+    elif cfg.family == "xlstm":
+        for i, pp in enumerate(_unstack(params, "pairs", cfg.n_layers // 2)):
+            x, s_state, m_state = _xlstm_pair_seq(cfg, x, pp,
+                                                  return_state=True)
+            for key, k in _XLSTM_STATE:
+                cache[key][i] = s_state[k]
+            for key, k in _MLSTM_STATE:
+                cache[key][i] = m_state[k]
+    elif cfg.family == "encdec":
+        _need_frames(cfg, frames)
+        enc_out = _encoder(params, cfg, frames)
+        for i, lp in enumerate(_unstack(params, "dec", cfg.n_layers)):
+            x, _ = _dec_layer_seq(cfg, x, lp, enc_out,
+                                  cache=(cache["k"][i], cache["v"][i]),
+                                  cache_index=0)
+        # the prompt's frames, which may be fewer than init_cache sized
+        cache["enc_out"] = enc_out
+    else:
+        raise ValueError(cfg.family)
     cache["index"].fill_(s)
     return _logits(params, cfg, x[:, -1:]), cache
 
@@ -369,17 +538,47 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
 
     The cache's tensors are updated in place and returned with the index
     advanced; the step reads no value back to the host."""
-    _check_family(cfg)
     b = tokens.shape[0]
     index = cache["index"]
     x = params["embed"][tokens].to(cfg.dtype)
     pos = index.reshape(1, 1).expand(b, 1)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
-            x, _ = _dense_block_seq(cfg, x, lp, pos,
-                                    cache=(cache["k"][i], cache["v"][i]),
-                                    cache_index=index)
-        return _logits(params, cfg, x), dict(cache, index=index + 1)
+            x, _, _ = _dense_block_seq(cfg, x, lp, pos,
+                                       cache=(cache["k"][i], cache["v"][i]),
+                                       cache_index=index)
+    elif cfg.family == "griffin":
+        x = _griffin_decode(params, cfg, cache, x, pos)
+    elif cfg.family == "xlstm":
+        for i, pp in enumerate(_unstack(params, "pairs", cfg.n_layers // 2)):
+            y, s_new = R.slstm_scan(
+                pp["slstm"], L.rmsnorm(pp["ln_s"], x, cfg.norm_eps),
+                state={k: cache[key][i] for key, k in _XLSTM_STATE})
+            x = x + y
+            y, m_new = R.mlstm_step(
+                pp["mlstm"], cfg, L.rmsnorm(pp["ln_m"], x, cfg.norm_eps),
+                {k: cache[key][i] for key, k in _MLSTM_STATE})
+            x = x + y
+            for key, k in _XLSTM_STATE:
+                cache[key][i] = s_new[k]
+            for key, k in _MLSTM_STATE:
+                cache[key][i] = m_new[k]
+    elif cfg.family == "encdec":
+        for i, lp in enumerate(_unstack(params, "dec", cfg.n_layers)):
+            x, _ = _dec_layer_seq(cfg, x, lp, cache["enc_out"], positions=pos,
+                                  cache=(cache["k"][i], cache["v"][i]),
+                                  cache_index=index)
+    else:
+        raise ValueError(cfg.family)
+    return _logits(params, cfg, x), dict(cache, index=index + 1)
+
+
+def _griffin_decode(params: Tree, cfg: ModelConfig, cache: Tree,
+                    x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The griffin family's decode step over its groups and tail, the
+    attention layers against the ring-buffer cache."""
+    b = x.shape[0]
+    index = cache["index"]
     win = cache["k"].shape[2]
     slot = (index % win).reshape(1).long()
     kpos = _ring_positions(win, index)
@@ -421,5 +620,4 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
         x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, pos, state=st)
         cache["tail_conv"][i] = st["conv"]
         cache["tail_h"][i] = st["h"]
-    new_cache = dict(cache, index=index + 1)
-    return _logits(params, cfg, x), new_cache
+    return x

@@ -1,14 +1,14 @@
-"""Recurrent temporal mixing: the RG-LRU block of Griffin / RecurrentGemma.
+"""Recurrent temporal mixing: the RG-LRU block of Griffin / RecurrentGemma,
+and the xLSTM cells (sLSTM, mLSTM).
 
-Plain PyTorch, the JAX package's ``models/recurrent.py`` (its RG-LRU half)
-op for op, with two execution modes:
-  * sequence mode (prefill): the recurrence over the whole prompt goes
-    through ``kernels.ops.rg_lru`` — the RG-LRU kernel on a CUDA device,
-    its plain version on the CPU — where the JAX package runs an
-    associative scan;
-  * step mode (decode): an O(1) elementwise state update.
-
-The xLSTM cells (sLSTM, mLSTM) are not ported yet (ROADMAP A13b).
+Plain PyTorch, the JAX package's ``models/recurrent.py`` op for op, with
+two execution modes:
+  * sequence mode (prefill): the RG-LRU recurrence over the whole prompt
+    goes through ``kernels.ops.rg_lru`` — the RG-LRU kernel on a CUDA
+    device, its plain version on the CPU — where the JAX package runs an
+    associative scan; the sLSTM runs the JAX package's associative scan
+    (``_assoc_scan``), the mLSTM its chunkwise-parallel form;
+  * step mode (decode): an O(1) state update.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ._assoc_scan import associative_scan
 from .config import ModelConfig
 from .layers import truncated_normal
 
@@ -116,4 +117,206 @@ def init_griffin_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
         "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
                             device=device),
         "h": torch.zeros((batch, w), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: sLSTM block (scalar memory) and mLSTM block (matrix memory)
+# ---------------------------------------------------------------------------
+
+def init_slstm(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    d = cfg.d_model
+    std = 0.02
+    pd = cfg.param_dtype
+    return {
+        "w_z": truncated_normal(generator, (d, d), pd, std),
+        "w_i": truncated_normal(generator, (d, d), pd, std),
+        "w_f": truncated_normal(generator, (d, d), pd, std),
+        "w_o": truncated_normal(generator, (d, d), pd, std),
+        "w_out": truncated_normal(generator, (d, d), pd,
+                                  std / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _slstm_combine(c1, c2):
+    f1, m1, cc1, nn1 = c1
+    f2, m2, cc2, nn2 = c2
+    m = torch.maximum(m1 + f2, m2)
+    scale1 = torch.exp(m1 + f2 - m)
+    scale2 = torch.exp(m2 - m)
+    return f1 + f2, m, cc1 * scale1 + cc2 * scale2, nn1 * scale1 + nn2 * scale2
+
+
+def slstm_scan(p: Dict, x: torch.Tensor, state: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """sLSTM with exponential gating (input-conditioned gates). x: (B, S, D).
+
+    c_t = f_t c_{t-1} + i_t z_t ;  n_t = f_t n_{t-1} + i_t ;  h = o * c/n
+    with log-space stabilizer m_t = max(log f_t + m_{t-1}, log i_t), as an
+    associative scan over (cumulative log f, running max m, stabilized c,
+    stabilized n); a carried ``state`` (c, n, m) is folded into step 0."""
+    z = torch.tanh((x @ p["w_z"]).float())
+    log_i = (x @ p["w_i"]).float()
+    log_f = F.logsigmoid((x @ p["w_f"]).float())
+    o = torch.sigmoid((x @ p["w_o"]).float())
+
+    m0 = log_i  # per-step stabilizer
+    c_elems = [log_f, m0, torch.exp(log_i - m0) * z, torch.exp(log_i - m0)]
+    if state is not None:
+        f0, mm0, cc0, nn0 = (log_f[:, 0], m0[:, 0], c_elems[2][:, 0],
+                             c_elems[3][:, 0])
+        m_in = state["m"].float()
+        mm = torch.maximum(m_in + f0, mm0)
+        cc = (state["c"].float() * torch.exp(m_in + f0 - mm)
+              + cc0 * torch.exp(mm0 - mm))
+        nn = (state["n"].float() * torch.exp(m_in + f0 - mm)
+              + nn0 * torch.exp(mm0 - mm))
+        c_elems = [c_elems[0]] + [
+            torch.cat([v[:, None], e[:, 1:]], dim=1)
+            for v, e in zip((mm, cc, nn), c_elems[1:])]
+    _, m, c, n = associative_scan(_slstm_combine, c_elems, axis=1)
+    h = o * (c / torch.clamp_min(n.abs(), 1.0))
+    y = h.to(x.dtype) @ p["w_out"]
+    new_state = {"c": c[:, -1], "n": n[:, -1], "m": m[:, -1]}
+    return y, new_state
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int,
+                     device: Optional[torch.device] = None) -> Dict:
+    d = cfg.d_model
+    z = torch.zeros((batch, d), dtype=torch.float32, device=device)
+    return {"c": z, "n": z.clone(),
+            "m": torch.full((batch, d), -1e30, dtype=torch.float32,
+                            device=device)}
+
+
+def init_mlstm(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    d, h = cfg.d_model, cfg.n_heads
+    std = 0.02
+    pd = cfg.param_dtype
+    return {
+        "w_q": truncated_normal(generator, (d, d), pd, std),
+        "w_k": truncated_normal(generator, (d, d), pd, std),
+        "w_v": truncated_normal(generator, (d, d), pd, std),
+        "w_i": truncated_normal(generator, (d, h), pd, std),
+        "w_f": truncated_normal(generator, (d, h), pd, std),
+        "w_out": truncated_normal(generator, (d, d), pd,
+                                  std / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def mlstm_chunkwise(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    chunk: int = 256, state: Optional[Dict] = None,
+                    return_state: bool = False):
+    """Chunkwise-parallel mLSTM (matrix memory): intra-chunk quadratic with
+    decay mask + inter-chunk carried (C, n) state. x: (B, S, D); S must be
+    a multiple of ``chunk`` when it is longer.
+
+    NOTE on prefill->decode handoff: the chunkwise form carries an
+    unstabilized (C, n); the returned state therefore has m = 0 (identity
+    scale), which the step form consumes directly."""
+    b, s, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mLSTM: sequence length {s} is not a multiple of "
+                         f"the chunk {chunk}")
+
+    def heads(w):
+        return (x @ w).reshape(b, s, nh, hd)
+
+    q = heads(p["w_q"]).float() / math.sqrt(hd)
+    k = heads(p["w_k"]).float() / math.sqrt(hd)
+    v = heads(p["w_v"]).float()
+    log_i = (x @ p["w_i"]).float()
+    log_f = F.logsigmoid((x @ p["w_f"]).float())
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()
+
+    if state is not None:
+        # fold a stabilized decode state back to raw scale (exp(m))
+        scale = torch.exp(state["m"].float())
+        C = state["C"].float() * scale[..., None, None]
+        n = state["n"].float() * scale[..., None]
+    else:
+        C = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
+        n = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
+    hs = []
+    for c0 in range(0, s, chunk):
+        qb, kb, vb, ib, fb = (t[:, c0:c0 + chunk]
+                              for t in (q, k, v, log_i, log_f))
+        f_cum = torch.cumsum(fb, dim=1)  # (B,chunk,H)
+        f_tot = f_cum[:, -1]
+        # intra-chunk decay matrix D[t, t'] = exp(f_cum_t - f_cum_t' + i_t')
+        logD = (f_cum[:, :, None, :] - f_cum[:, None, :, :]
+                + ib[:, None, :, :])  # (B,t,t',H)
+        logD = torch.where(mask[None, :, :, None], logD, -math.inf)
+        # stabilizer per query step
+        m_intra = logD.amax(dim=2)  # (B,t,H)
+        m_inter = f_cum  # decay applied to carried state
+        m = torch.maximum(m_intra, m_inter)
+        Dm = torch.exp(logD - m[:, :, None, :])
+        s_qk = torch.einsum("bthd,bshd->btsh", qb, kb) * Dm
+        intra = torch.einsum("btsh,bshd->bthd", s_qk, vb)
+        inter_scale = torch.exp(m_inter - m)  # (B,t,H)
+        inter = torch.einsum("bthd,bhde->bthe", qb, C) * inter_scale[..., None]
+        num = intra + inter
+        den_intra = s_qk.sum(dim=2)  # (B,t,H)
+        den_inter = torch.einsum("bthd,bhd->bth", qb, n) * inter_scale
+        den = torch.maximum((den_intra + den_inter).abs(), torch.exp(-m))
+        hs.append(num / den[..., None])
+        # C' = exp(f_tot) C + sum_t exp(f_tot - f_cum_t + i_t) k_t v_t^T
+        w_t = torch.exp(f_tot[:, None, :] - f_cum + ib)  # (B,chunk,H)
+        C = torch.exp(f_tot)[:, :, None, None] * C + torch.einsum(
+            "bthd,bthe->bhde", kb * w_t[..., None], vb)
+        n = torch.exp(f_tot)[:, :, None] * n + torch.einsum(
+            "bthd,bth->bhd", kb, w_t)
+    h = torch.cat(hs, dim=1).reshape(b, s, nh * hd)
+    y = h.to(x.dtype) @ p["w_out"]
+    if return_state:
+        final = {"C": C, "n": n,
+                 "m": torch.zeros((b, nh), dtype=torch.float32,
+                                  device=x.device)}
+        return y, final
+    return y
+
+
+def mlstm_step(p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Dict
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step with matrix memory. x: (B, 1, D)."""
+    b, _, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    xt = x[:, 0]
+    q = (xt @ p["w_q"]).reshape(b, nh, hd).float() / math.sqrt(hd)
+    k = (xt @ p["w_k"]).reshape(b, nh, hd).float() / math.sqrt(hd)
+    v = (xt @ p["w_v"]).reshape(b, nh, hd).float()
+    log_i = (xt @ p["w_i"]).float()  # (B,H)
+    log_f = F.logsigmoid((xt @ p["w_f"]).float())
+    m_prev = state["m"]
+    m = torch.maximum(log_f + m_prev, log_i)
+    f_s = torch.exp(log_f + m_prev - m)[..., None]
+    i_s = torch.exp(log_i - m)[..., None]
+    C = (f_s[..., None] * state["C"]
+         + i_s[..., None] * (k[..., :, None] * v[..., None, :]))
+    n = f_s * state["n"] + i_s * k
+    num = torch.einsum("bhd,bhde->bhe", q, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(),
+                        torch.exp(-m))
+    h = (num / den[..., None]).reshape(b, 1, nh * hd)
+    y = h.to(x.dtype) @ p["w_out"]
+    return y, {"C": C, "n": n, "m": m}
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int,
+                     device: Optional[torch.device] = None) -> Dict:
+    nh = cfg.n_heads
+    hd = cfg.d_model // nh
+    return {
+        "C": torch.zeros((batch, nh, hd, hd), dtype=torch.float32,
+                         device=device),
+        "n": torch.zeros((batch, nh, hd), dtype=torch.float32, device=device),
+        "m": torch.full((batch, nh), -30.0, dtype=torch.float32,
+                        device=device),
     }

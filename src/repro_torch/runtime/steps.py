@@ -127,7 +127,8 @@ def build_serve_step(cfg: ModelConfig) -> Callable:
 def build_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params, batch):
         return prefill(params, cfg, batch["tokens"],
-                       positions=batch.get("positions"))
+                       positions=batch.get("positions"),
+                       frames=batch.get("frames"))
     return prefill_step
 
 

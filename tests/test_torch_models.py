@@ -143,15 +143,30 @@ def test_full_config_equals_the_reference():
             assert a == b, f.name
     assert tcfg.pattern() == jcfg.pattern()
     assert tconfigs.canonical("recurrentgemma-2b") == "recurrentgemma_2b"
-    with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("qwen2-moe-a2.7b")
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
 
 
-def test_other_families_name_their_roadmap_item():
+def test_unknown_family_raises_value_error():
+    """As the JAX package's ``init_model`` does for a family it lacks."""
     tcfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
-                               family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+                               family="mamba")
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(ARCH),
+                               family="mamba")
+    with pytest.raises(ValueError, match="mamba"):
+        jmodels.init_model(jcfg, jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="mamba"):
         tmodels.init_model(tcfg, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="mamba"):
+        tmodels.init_cache(tcfg, 1, 8, device="cpu")
+
+
+def test_unknown_arch_raises_key_error():
+    """As the JAX package's registry does."""
+    for registry in (jconfigs, tconfigs):
+        for fn in (registry.get_config, registry.get_smoke_config,
+                   registry.canonical):
+            with pytest.raises(KeyError):
+                fn("gpt-5")
 
 
 def test_init_model_shapes_scales_and_device():
