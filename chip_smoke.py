@@ -64,6 +64,31 @@ JSON line with its numbers and seconds:
                 encoder layer and causal in each decoder layer of a prefill
   train_small   xLSTM-125M and Whisper-small trained at full width and
                 depth, 3 timed steps each, the train phase's checks
+  train_sharded train_dense's model, weights and batches for 2 steps on
+                plain tensors and 2 on DTensor parameters over the 1 x 1
+                ("data", "model") mesh of a world-size-1 NCCL group, through
+                ``build_train_step(param_specs=...)``: losses and every
+                parameter leaf bit for bit, flash launched as often (the
+                kernels run on each rank's block); the same for the griffin
+                smoke config, whose step runs the RG-LRU kernel and its
+                backward on DTensor blocks; step times both ways
+  serve_sharded Llama-3-8B at full width and depth, one batch of 4 prompts
+                of 4088 tokens and 8 generated tokens, on plain tensors
+                and on DTensors over the 1 x 1 mesh (teacher-forced by the
+                plain run's tokens): logits within 2e-2, prefill and decode
+                times both ways
+  elastic       a failure after step 1 of the griffin smoke config:
+                ``FaultTolerantRunner.on_failure`` with the one healthy rank
+                plans and builds a (1, 1) mesh and restores the checkpoint;
+                step 1 resumed on DTensors must equal the uninterrupted one
+                bit for bit
+  dryrun        ``launch.dryrun`` on a fake process group of 256 ranks
+                (16 x 16), one process a cell, all started together at a
+                lower priority beside train_dense and train_moe (host
+                cores only; the card is 99% busy with the train steps):
+                Llama-3-8B, Qwen1.5-MoE and RecurrentGemma-2B at train_4k,
+                per-rank FLOPs, bytes, collectives, roofline terms with the
+                H100's constants and the Metronome traffic each gives
   kernels       each kernel wrapper against its plain PyTorch version on the
                 very inputs the paths above gave it, plus synthetic cases
                 (padding, a wide candidate batch, a zero-capacity link whose
@@ -81,6 +106,8 @@ JSON line with its numbers and seconds:
                 flash kernel must beat at the serving shape; flash also at
                 the Llama-3-8B, Qwen1.5-MoE and Whisper main-path launches
 
+The phases run in this order but for serve_moe, which runs before
+train_dense, and dryrun, whose cells run beside train_dense and train_moe.
 Launch counts are zeroed just before each path and read just after it.
 Every check that fails raises, so the script exits non-zero; it also exits
 non-zero without a CUDA device.  The last lines are the kernel summary, the
@@ -92,12 +119,13 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -134,17 +162,22 @@ from repro_torch.kernels.metronome_score import (  # noqa: E402
     metronome_score_pairwise)
 from repro_torch.kernels.rg_lru import (_rg_lru_pallas_bwd,  # noqa: E402
                                         rg_lru_pallas)
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import (make_frames,  # noqa: E402
                                       make_prompts, serve_requests)
 from repro_torch.models import (decode_step, forward,  # noqa: E402
-                                init_model, loss_fn, param_count, prefill)
+                                init_model, logical_specs, loss_fn,
+                                param_count, prefill)
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.runtime.comm_gate import (CommGate,  # noqa: E402
                                            IterationReporter)
-from repro_torch.runtime.steps import (build_train_step,  # noqa: E402
-                                       init_train_state)
+from repro_torch.runtime.elastic import FaultTolerantRunner  # noqa: E402
+from repro_torch.runtime.steps import (TrainState,  # noqa: E402
+                                       build_train_step, init_train_state)
+from repro_torch.sharding import shard_tree, use_rules  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1312,6 +1345,383 @@ def first_step_witness(state, p0: List[torch.Tensor], batch, cfg, opt_cfg,
                 moved_share=moved / n, grad_l1=l1 / g_scale)
 
 
+
+# ---------------------------------------------------------------------------
+# sharded paths: DTensor on the 1 x 1 mesh, the elastic re-mesh, the dry run
+# ---------------------------------------------------------------------------
+
+# train_dense's model, weights (seed) and batches, 2 steps plain and 2 on
+# DTensor parameters over the 1-rank NCCL mesh
+TRAIN_SHARDED = dict(TRAIN_DENSE, steps=2)
+# Llama-3-8B at full width and depth, one batch of 4 requests, 8 generated
+# tokens: prompts of 4088 so that prompt and generated tokens fill whole
+# 1024-token chunks of the decode's attention
+SERVE_SHARDED = dict(SERVE_DENSE, requests=4, prompt_len=4088, gen=8)
+# the dry run's cells on the fake 16 x 16 process group (one process each,
+# all started together), and the link rate the Metronome core is handed
+# (RecurrentGemma at prefill_32k counts ~10x the model's FLOPs: its
+# chunked local attention computes every 1024-key chunk of 32,768 for a
+# 2048-token window, and its 10 heads do not split over 16 ranks, so the
+# ratio check cannot hold there; train_4k keeps the family, PERF.md)
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("qwen2-moe-a2.7b", "train_4k"),
+                ("recurrentgemma-2b", "train_4k"))
+DRYRUN_RATIO = (0.3, 1.5)  # model FLOPs over counted FLOPs, per rank
+DRYRUN_TIMEOUT_S = 300
+
+
+def _host_mesh():
+    """The 1 x 1 ("data", "model") mesh over a world-size-1 NCCL group."""
+    return make_host_mesh(1, 1, device=DEVICE)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _train_steps(cfg, spec, sharded: bool, rec: Optional[Recorder] = None):
+    """``spec["steps"]`` steps of ``spec``'s traffic from the seed's
+    weights, on plain tensors or on DTensors over the 1 x 1 mesh, the
+    kernels' inputs kept in ``rec`` where given: (losses, step ms, final
+    parameters (plain), launches by wrapper)."""
+    opt_cfg = AdamWConfig()
+    gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"])
+    params = init_model(cfg, gen, DEVICE)
+    ds = SyntheticLM(cfg.vocab, spec["seq"], spec["batch"],
+                     seed=spec["seed"])
+    specs = logical_specs(cfg) if sharded else None
+    ctx = use_rules(_host_mesh()) if sharded else contextlib.nullcontext()
+    losses, step_ms, path = [], [], {}
+    with ctx:
+        if sharded:
+            params = shard_tree(params, specs)
+        state = TrainState(params, adamw_init(opt_cfg, params),
+                           torch.zeros((), dtype=torch.int32, device=DEVICE))
+        step_fn = build_train_step(cfg, opt_cfg, spec["n_micro"],
+                                   param_specs=specs)
+        recording = rec.active() if rec else contextlib.nullcontext()
+        with counted(path), recording:
+            for step in range(spec["steps"]):
+                batch = _train_batch(ds, step, cfg)
+                _sync()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                losses.append(_full(metrics["loss"]).clone())
+                _sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        final = [_full(p).clone() for p in _leaves(state.params)]
+    del state, params
+    torch.cuda.empty_cache()
+    return losses, step_ms, final, path
+
+
+def phase_train_sharded(launches, rec: Recorder,
+                        rec_griffin: Recorder) -> dict:
+    """train_dense's first steps on DTensor parameters over the 1-rank
+    mesh, through ``build_train_step(param_specs=...)``, against the same
+    steps on plain tensors: the losses and every parameter leaf bit for
+    bit, flash launched as often.  Then the same on the griffin smoke
+    config (head dim 64 for the kernel), whose path runs the RG-LRU
+    kernel and its backward on DTensor blocks.  The DTensor runs' kernel
+    inputs go to ``rec`` and ``rec_griffin`` (the kernel cases hold them
+    against the plain versions)."""
+    torch.cuda.empty_cache()
+    spec = TRAIN_SHARDED
+    cfg = dataclasses.replace(model_configs.get_config(spec["arch"]),
+                              n_layers=spec["n_layers"])
+    t0 = time.perf_counter()
+    l0, ms0, p0, path0 = _train_steps(cfg, spec, sharded=False)
+    l1, ms1, p1, path1 = _train_steps(cfg, spec, sharded=True, rec=rec)
+    for w, n in path1.items():
+        launches[w] = launches.get(w, 0) + n
+    seconds = time.perf_counter() - t0
+    want_flash = 2 * cfg.n_layers * spec["n_micro"] * spec["steps"]
+    check(path0["flash_attention_fwd"] == path1["flash_attention_fwd"]
+          == want_flash,
+          f"train_sharded: flash launches plain {path0} sharded {path1}, "
+          f"expected {want_flash}")
+    loss_equal = all(torch.equal(a, b) for a, b in zip(l0, l1))
+    differ = [i for i, (a, b) in enumerate(zip(p0, p1))
+              if not torch.equal(a, b)]
+    max_rel = max((float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max().clamp_min(1e-30))
+                   for a, b in zip(p0, p1)), default=0.0)
+    check(loss_equal and not differ,
+          f"train_sharded: not bit for bit: losses {l0} {l1}, leaves "
+          f"{differ} differ (max rel {max_rel})")
+    del p0, p1
+
+    small = dataclasses.replace(
+        model_configs.get_smoke_config("recurrentgemma-2b"), d_head=64)
+    small_spec = dict(spec, seq=256, batch=4, steps=1)
+    s0, _, q0, g0 = _train_steps(small, small_spec, sharded=False)
+    s1, _, q1, g1 = _train_steps(small, small_spec, sharded=True,
+                                 rec=rec_griffin)
+    for w, n in g1.items():
+        launches[w] = launches.get(w, 0) + n
+    n_attn, n_rg = _layer_counts(small)
+    want = {"flash_attention_fwd": 2 * n_attn * spec["n_micro"],
+            "rg_lru_pallas": 2 * n_rg * spec["n_micro"],
+            "_rg_lru_pallas_bwd": n_rg * spec["n_micro"]}
+    for w, n in want.items():
+        check(g0[w] == g1[w] == n,
+              f"train_sharded griffin: {w} launches plain {g0[w]} sharded "
+              f"{g1[w]}, expected {n}")
+    check(torch.equal(s0[0], s1[0])
+          and all(torch.equal(a, b) for a, b in zip(q0, q1)),
+          "train_sharded griffin: the DTensor step differs from the plain "
+          "one")
+    out = dict(arch=cfg.name, layers=cfg.n_layers, seq=spec["seq"],
+               batch=spec["batch"], n_micro=spec["n_micro"],
+               steps=spec["steps"], mesh="1x1 (NCCL, world size 1)",
+               losses=[float(x) for x in l1], bit_exact=True,
+               step_ms_plain=ms0, step_ms_dtensor=ms1,
+               dtensor_overhead_ms=[b - a for a, b in zip(ms0, ms1)],
+               flash_launches=path1["flash_attention_fwd"],
+               griffin_smoke=dict(loss=float(s1[0]),
+                                  launches={w: g1[w] for w in want},
+                                  bit_exact=True),
+               seconds=seconds)
+    emit("train_sharded", **out)
+    return out
+
+
+def _serve_trace(params, cfg, prompts, gen: int, tokens=None):
+    """Prefill ``prompts`` and decode ``gen - 1`` steps, teacher-forced by
+    ``tokens`` (B, gen) where given, else greedy: (prefill logits, decode
+    logits a step, tokens, prefill ms, decode ms a step)."""
+    with torch.no_grad():
+        _sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, prompts,
+                                max_len=prompts.shape[1] + gen)
+        first = _full(logits).float()
+        _sync()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        tok = (first[:, -1].argmax(dim=-1, keepdim=True) if tokens is None
+               else tokens[:, :1])
+        toks, steps, step_ms = [tok], [], []
+        for i in range(gen - 1):
+            t0 = time.perf_counter()
+            logits, cache = decode_step(params, cfg, cache, tok)
+            lg = _full(logits).float()
+            _sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            steps.append(lg)
+            tok = (lg[:, -1].argmax(dim=-1, keepdim=True) if tokens is None
+                   else tokens[:, i + 1:i + 2])
+            toks.append(tok)
+    return first, steps, torch.cat(toks, dim=1), prefill_ms, step_ms
+
+
+def phase_serve_sharded(launches, rec: Recorder) -> dict:
+    """Llama-3-8B at full width and depth served on plain tensors and on
+    DTensor parameters over the 1-rank mesh, the same weights, prompts and
+    (teacher-forced) tokens: prefill and decode logits within LOGIT_TOL,
+    flash once a layer in both prefills; the DTensor run's kernel inputs
+    go to ``rec``."""
+    torch.cuda.empty_cache()
+    spec = SERVE_SHARDED
+    cfg = model_configs.get_config(spec["arch"])
+    gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"])
+    params = init_model(cfg, gen, DEVICE)
+    prompts = make_prompts(cfg, spec["requests"], spec["batch"],
+                           spec["prompt_len"], gen, DEVICE)[0]
+    _serve_trace(params, cfg, prompts[:, :1022], 2)  # warm-up
+    p0: Dict[str, int] = {}
+    with counted(p0):
+        pre0, dec0, toks, pre0_ms, dec0_ms = _serve_trace(
+            params, cfg, prompts, spec["gen"])
+    with use_rules(_host_mesh()):
+        dparams = shard_tree(params, logical_specs(cfg))
+        del params
+        torch.cuda.empty_cache()
+        _serve_trace(dparams, cfg, prompts[:, :1022], 2)  # warm-up
+        p1: Dict[str, int] = {}
+        with counted(p1), rec.active():
+            pre1, dec1, _, pre1_ms, dec1_ms = _serve_trace(
+                dparams, cfg, prompts, spec["gen"], tokens=toks)
+    for w, n in p1.items():
+        launches[w] = launches.get(w, 0) + n
+    del dparams
+    torch.cuda.empty_cache()
+    check(p0["flash_attention_fwd"] == p1["flash_attention_fwd"]
+          == cfg.n_layers,
+          f"serve_sharded: flash launches plain {p0} sharded {p1}, "
+          f"expected {cfg.n_layers}")
+    pre_err = float((pre0 - pre1).abs().max())
+    dec_err = max(float((a - b).abs().max()) for a, b in zip(dec0, dec1))
+    check(pre_err <= LOGIT_TOL and dec_err <= LOGIT_TOL,
+          f"serve_sharded: logits apart by {pre_err} (prefill), {dec_err} "
+          f"(decode), more than {LOGIT_TOL}")
+
+    def stats(ms):
+        s = sorted(ms)
+        return dict(median=statistics.median(s),
+                    p90=s[int(0.9 * (len(s) - 1))])
+
+    out = dict(arch=cfg.name, batch=spec["batch"],
+               prompt_len=spec["prompt_len"], gen=spec["gen"],
+               mesh="1x1 (NCCL, world size 1)",
+               prefill_ms_plain=pre0_ms, prefill_ms_dtensor=pre1_ms,
+               decode_step_ms_plain=stats(dec0_ms),
+               decode_step_ms_dtensor=stats(dec1_ms),
+               prefill_max_abs_err=pre_err, decode_max_abs_err=dec_err,
+               tolerance=LOGIT_TOL,
+               flash_launches=p1["flash_attention_fwd"])
+    emit("serve_sharded", **out)
+    return out
+
+
+def phase_elastic(launches, rec: Recorder) -> dict:
+    """A failure after step 0 of the griffin smoke config (head dim 64) on
+    the card: ``FaultTolerantRunner.on_failure`` with the one healthy rank
+    plans a (1, 1) mesh, builds it, restores the step-1 checkpoint, and
+    step 1 resumes on DTensors over that mesh; it must equal step 1 of the
+    uninterrupted run bit for bit.  The resumed step's kernel inputs go to
+    ``rec``."""
+    import shutil
+    cfg = dataclasses.replace(
+        model_configs.get_smoke_config("recurrentgemma-2b"), d_head=64)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    ds = SyntheticLM(cfg.vocab, 256, 4, seed=0)
+    step_fn = build_train_step(cfg, opt_cfg, 2)
+    ckpt_dir = ROOT / "build" / "elastic_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def fresh():
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        return init_train_state(cfg, opt_cfg, gen, DEVICE)
+
+    path: Dict[str, int] = {}
+    with counted(path):
+        state, _ = step_fn(fresh(), _train_batch(ds, 0, cfg))
+        mgr = CheckpointManager(str(ckpt_dir), async_save=False)
+        mgr.save(1, state)
+        state, m_ref = step_fn(state, _train_batch(ds, 1, cfg))
+        want = [p.clone() for p in _leaves(state.params)]
+
+        runner = FaultTolerantRunner(mgr, model_parallel=1, device=DEVICE)
+        mesh, restored, step, decision = runner.on_failure([0], fresh())
+        check(step == 1 and decision.mesh_shape == (1, 1)
+              and tuple(mesh.shape) == (1, 1),
+              f"elastic: resumed at {step} on {decision.mesh_shape}")
+        specs = logical_specs(cfg)
+        with use_rules(mesh), rec.active():
+            params = shard_tree(restored.params, specs)
+            opt = {"m": shard_tree(restored.opt["m"], specs),
+                   "v": shard_tree(restored.opt["v"], specs),
+                   "step": restored.opt["step"]}
+            resumed = TrainState(params, opt, restored.step)
+            resumed, m = build_train_step(cfg, opt_cfg, 2,
+                                          param_specs=specs)(
+                resumed, _train_batch(ds, 1, cfg))
+            got = [_full(p) for p in _leaves(resumed.params)]
+            loss = _full(m["loss"])
+    for w, n in path.items():
+        launches[w] = launches.get(w, 0) + n
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(torch.equal(loss, m_ref["loss"])
+          and all(torch.equal(a, b) for a, b in zip(got, want)),
+          "elastic: the resumed step differs from the uninterrupted one")
+    out = dict(arch=cfg.name, events=runner.events,
+               mesh_shape=list(decision.mesh_shape), resumed_at=step,
+               loss=float(loss), bit_exact=True,
+               launches={w: n for w, n in path.items() if n})
+    emit("elastic", **out)
+    return out
+
+
+class DryRun:
+    """The dry run's cells on a fake 256-rank process group, one process a
+    cell (a fake group must be its process's only one), started together
+    at a lower priority while the card trains (the cells need only host
+    cores, and the train steps keep the card 99% busy), each writing its
+    log under ``build/dryrun``; :meth:`stop` ends any still running."""
+
+    def __init__(self) -> None:
+        self.dir = ROOT / "build" / "dryrun"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        self.t0 = time.perf_counter()
+        self.procs = []
+        try:
+            for arch, shape in DRYRUN_CELLS:
+                out = self.dir / f"{arch}_{shape}.json"
+                out.unlink(missing_ok=True)
+                with open(self.dir / f"{arch}_{shape}.log", "w") as log:
+                    self.procs.append((arch, shape, out, subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.launch.dryrun",
+                         "--arch", arch, "--shape", shape, "--mesh",
+                         "single", "--out", str(out)], cwd=self.dir,
+                        env=env, stdout=log, stderr=subprocess.STDOUT,
+                        preexec_fn=lambda: os.nice(10))))
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        for *_, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def wait(self) -> Tuple[dict, float]:
+        """Each cell's record once its process ends, and the seconds from
+        the start to the last end."""
+        cells = {}
+        try:
+            for arch, shape, out, proc in self.procs:
+                proc.wait(timeout=DRYRUN_TIMEOUT_S)
+                log = (self.dir / f"{arch}_{shape}.log").read_text()
+                check(proc.returncode == 0,
+                      f"dryrun {arch} {shape}: exit {proc.returncode}: "
+                      f"{log[-2000:]}")
+                cells.update(json.loads(out.read_text()))
+        finally:
+            self.stop()
+        return cells, time.perf_counter() - self.t0
+
+
+def phase_dryrun(run: DryRun) -> dict:
+    """The dry run's cells (:class:`DryRun`): every cell ``ok``, the
+    model's FLOPs over the counted ones within DRYRUN_RATIO, and the
+    Metronome traffic each roofline gives."""
+    from repro_torch.core.workload import traffic_from_roofline
+    from repro_torch.launch.dryrun import LINK_BW
+    cells, seconds = run.wait()
+    report = {}
+    for key, info in cells.items():
+        check(info.get("status") == "ok",
+              f"dryrun {key}: {info.get('status')}: {info.get('error')}")
+        ratio = info["model_vs_counted_flops"]
+        lo, hi = DRYRUN_RATIO
+        check(ratio is not None and lo < ratio < hi,
+              f"dryrun {key}: model over counted FLOPs {ratio} outside "
+              f"{DRYRUN_RATIO}")
+        r = info["roofline"]
+        traffic = traffic_from_roofline(r["compute_s"], r["collective_s"],
+                                        LINK_BW * 8 / 1e9)
+        report[key] = dict(
+            flops=info["cost"]["flops"], hbm_bytes=info["cost"]["bytes"],
+            attention_hbm_bytes=info["attention_hbm_bytes"],
+            collective_bytes=info["collectives"],
+            model_vs_counted_flops=ratio, roofline_s=r,
+            bottleneck=info["bottleneck"],
+            roofline_flash_s=info["roofline_flash"],
+            memory=info["memory"], n_micro=info.get("n_micro"),
+            trace_s=info["trace_s"], trace_warnings=info["trace_warnings"],
+            traffic=dict(period_ms=traffic.period_ms, duty=traffic.duty,
+                         bw_gbps=traffic.bw_gbps))
+    out = dict(mesh="16x16 (fake process group of 256 ranks)",
+               constants="H100 SXM: 989e12 FLOP/s bf16, 3.35e12 B/s HBM, "
+                         "450e9 B/s NVLink one way",
+               cells=report, seconds=seconds)
+    emit("dryrun", **out)
+    return out
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     for v in tree.values():
@@ -1616,6 +2026,8 @@ def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
     for name, rec, causal in (
             ("flash_serve_dense", recs["serve_dense"], True),
             ("flash_train_dense", recs["train_dense"], True),
+            ("flash_serve_sharded", recs["serve_sharded"], True),
+            ("flash_train_sharded", recs["train_sharded"], True),
             ("flash_serve_moe", recs["serve_moe"], True),
             ("flash_train_moe", recs["train_moe"], True),
             ("flash_serve_encdec_encoder", recs["serve_encdec"], False),
@@ -1638,6 +2050,17 @@ def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
     cases["rg_lru_train"] = _rg_lru_case(a, x, main_path=True)
     a, y, g = train.inputs("rg_lru_bwd")[0]
     cases["rg_lru_bwd_train"] = _rg_lru_bwd_case(a, y, g)
+    # the griffin smoke config (head dim 64, a 16-token window) on DTensor
+    # blocks, in train_sharded and in the elastic resume
+    for tag in ("train_sharded_griffin", "elastic"):
+        rec = recs[tag]
+        q, k, v, causal, window = rec.inputs("flash_attention")[0]
+        cases[f"flash_{tag}"] = _flash_case(q, k, v, bool(causal),
+                                            int(window), main_path=True)
+        a, x = rec.inputs("rg_lru")[0]
+        cases[f"rg_lru_{tag}"] = _rg_lru_case(a, x, main_path=True)
+        a, y, g = rec.inputs("rg_lru_bwd")[0]
+        cases[f"rg_lru_bwd_{tag}"] = _rg_lru_bwd_case(a, y, g)
     a, x = _gates(12, (2, 1001, 1000))  # S % 64 = 41, W % 32 = 8
     y = ref.rg_lru_ref(a, x)
     cases["rg_lru_bwd_ragged_2x1001x1000"] = _rg_lru_bwd_case(
@@ -1865,7 +2288,9 @@ EXPERIMENT_JOBS = 1000
 MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_dense", "flash_serve_moe", "flash_train_moe",
                    "flash_serve_encdec_encoder", "flash_serve_encdec_decoder",
-                   "flash_train_small_encoder", "flash_train_small_decoder")
+                   "flash_train_small_encoder", "flash_train_small_decoder",
+                   "flash_serve_sharded", "flash_train_sharded",
+                   "flash_train_sharded_griffin", "flash_elastic")
 
 
 def main() -> int:
@@ -1884,22 +2309,33 @@ def main() -> int:
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
     recs = {name: Recorder() for name in (
         "serve", "train", "serve_dense", "train_dense", "serve_moe",
-        "train_moe", "serve_encdec", "train_small")}
+        "train_moe", "serve_encdec", "train_small", "train_sharded",
+        "train_sharded_griffin", "serve_sharded", "elastic")}
     phase_trace_corpus(launches, corpus)
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_planner(launches, planner)
     phase_serve(launches, recs["serve"])
     phase_train(launches, recs["train"])
     phase_serve(launches, recs["serve_dense"], SERVE_DENSE, "serve_dense")
-    phase_train(launches, recs["train_dense"], TRAIN_DENSE, "train_dense")
     phase_serve(launches, recs["serve_moe"], SERVE_MOE, "serve_moe")
-    phase_train(launches, recs["train_moe"], TRAIN_MOE, "train_moe")
+    dry = DryRun()  # host-side cells, beside two device-bound phases
+    try:
+        phase_train(launches, recs["train_dense"], TRAIN_DENSE,
+                    "train_dense")
+        phase_train(launches, recs["train_moe"], TRAIN_MOE, "train_moe")
+        phase_dryrun(dry)
+    finally:
+        dry.stop()
     # xLSTM's path launches no kernel: its recorder holds no case
     phase_serve(launches, Recorder(), SERVE_XLSTM, "serve_xlstm")
     phase_serve(launches, recs["serve_encdec"], SERVE_ENCDEC, "serve_encdec")
     for spec in TRAIN_SMALL:
         phase_train(launches, recs["train_small"], spec,
                     f"train_small_{spec['arch']}")
+    phase_train_sharded(launches, recs["train_sharded"],
+                        recs["train_sharded_griffin"])
+    phase_serve_sharded(launches, recs["serve_sharded"])
+    phase_elastic(launches, recs["elastic"])
     cases = phase_kernels(corpus, loop, planner, recs)
     print(json.dumps(kernel_summary(launches, cases, ptxas)), flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)

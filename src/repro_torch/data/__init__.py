@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLM, packed_batch_iterator
+from .pipeline import SyntheticLM, make_batch_specs, packed_batch_iterator
 
-__all__ = ["SyntheticLM", "packed_batch_iterator"]
+__all__ = ["SyntheticLM", "make_batch_specs", "packed_batch_iterator"]

@@ -48,12 +48,27 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+# Shape-only forms of the recurrence and its adjoint for meta tensors (the
+# dry run's): one op each, reading the inputs and writing the outputs
+# once, as the kernels do, where the plain versions would loop over time.
+_meta_lib = torch.library.Library("repro_torch", "DEF")
+_meta_lib.define("rg_lru_scan(Tensor a, Tensor x) -> Tensor")
+_meta_lib.define(
+    "rg_lru_scan_bwd(Tensor a, Tensor y, Tensor g) -> (Tensor, Tensor)")
+_meta_lib.impl("rg_lru_scan", lambda a, x: torch.empty_like(x), "Meta")
+_meta_lib.impl("rg_lru_scan_bwd", lambda a, y, g: (
+    torch.empty_like(g, dtype=torch.float32),
+    torch.empty_like(g, dtype=torch.float32)), "Meta")
+
+
 def rg_lru_pallas(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y_t = a_t * y_{t-1} + x_t along S from a zero state, (B, S, W).
 
     CPU tensors take the plain PyTorch version
     (:func:`~repro_torch.kernels.ref.rg_lru_ref`); CUDA tensors launch the
-    kernel (float32, contiguous), or raise."""
+    kernel (float32, contiguous), or raise; meta tensors give the shape."""
+    if x.device.type == "meta":
+        return torch.ops.repro_torch.rg_lru_scan(a, x)
     if not x.is_cuda:
         return rg_lru_ref(a, x)
     if x.dim() != 3:
@@ -88,6 +103,8 @@ def _rg_lru_pallas_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor
 
     CPU tensors take the plain reverse loop (:func:`rg_lru_bwd_ref`); CUDA
     tensors launch the backward kernel (float32, contiguous), or raise."""
+    if g.device.type == "meta":
+        return torch.ops.repro_torch.rg_lru_scan_bwd(a, y, g)
     if not g.is_cuda:
         return rg_lru_bwd_ref(a, y, g)
     if g.dim() != 3:

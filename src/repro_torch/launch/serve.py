@@ -7,7 +7,11 @@ admitted ``--batch`` at a time, each batch is prefilled once and then
 decoded step by step with the KV cache / recurrent state; every decode
 step's wall time goes to the stop-and-wait controller, the same way
 training steps do (serving jobs are periodic-traffic jobs too).  Without
-``--full`` it takes the architecture's smoke config.  One card, no mesh;
+``--full`` it takes the architecture's smoke config, with it the
+full-size one, on one card under the sharding rules of a 1 x 1 host mesh
+(on one rank nothing is split; the reference's ``--full`` means its
+256-rank production mesh, which only the dry run's fake process group
+gives here).
 ``--device cpu`` runs the plain PyTorch versions on the host.
 """
 from __future__ import annotations
@@ -26,6 +30,8 @@ from ..models import init_model, prefill
 from ..models.config import ModelConfig
 from ..runtime.comm_gate import IterationReporter
 from ..runtime.steps import build_serve_step
+from ..sharding import use_rules
+from .mesh import make_host_mesh
 
 
 @dataclasses.dataclass
@@ -131,14 +137,16 @@ def main(argv: Sequence[str] | None = None) -> None:
     controller = StopAndWaitController()
     reporter = IterationReporter(controller, f"serve-{args.arch}", priority=1)
 
-    params = init_model(cfg, generator, dev)
-    prompts = make_prompts(cfg, args.requests, args.batch, args.prompt_len,
-                           generator, dev)
-    frames = make_frames(cfg, args.requests, args.batch, args.prompt_len,
-                         generator, dev)
-    t_start = time.perf_counter()
-    res = serve_requests(params, cfg, prompts, args.gen, reporter, frames)
-    dt = time.perf_counter() - t_start
+    with use_rules(make_host_mesh(1, 1, device=dev)):
+        params = init_model(cfg, generator, dev)
+        prompts = make_prompts(cfg, args.requests, args.batch,
+                               args.prompt_len, generator, dev)
+        frames = make_frames(cfg, args.requests, args.batch,
+                             args.prompt_len, generator, dev)
+        t_start = time.perf_counter()
+        res = serve_requests(params, cfg, prompts, args.gen, reporter,
+                             frames)
+        dt = time.perf_counter() - t_start
     done = 0
     for toks in res.tokens:
         done += toks.shape[0]

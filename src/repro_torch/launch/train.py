@@ -4,9 +4,14 @@ The port's counterpart of ``repro.launch.train``: single-process end-to-end
 training with the full substrate -- synthetic data pipeline, AdamW,
 checkpointing/restart, Metronome comm-gating + iteration reporting.
 Without ``--full`` it trains the architecture's smoke config; ``--full``
-takes the full-size config on one card (no mesh: sharding waits for
-ROADMAP A15).  ``--device cpu`` runs the plain PyTorch versions on the
-host; weights are random, drawn from ``--seed``, which also seeds the data.
+takes the full-size config on one card.  Both run under the sharding rules
+of a 1 x 1 host mesh (``launch.mesh.make_host_mesh``), as the reference's
+smoke path does: on one rank the rules resolve and nothing is split.  The
+reference's ``--full`` means its 16 x 16 production mesh; that mesh needs
+256 ranks, which only the dry run's fake process group gives here
+(``launch.dryrun``).  ``--device cpu`` runs the plain PyTorch versions on
+the host; weights are random, drawn from ``--seed``, which also seeds the
+data.
 The synthetic batches carry tokens and labels only, as the reference's do,
 so an encdec model (``--arch whisper-small``) fails for want of its frames,
 as it does there (ROADMAP C5).
@@ -29,6 +34,8 @@ from ..models.config import ModelConfig
 from ..optim import AdamWConfig
 from ..runtime.comm_gate import CommGate, IterationReporter
 from ..runtime.steps import build_train_step, init_train_state
+from ..sharding import use_rules
+from .mesh import make_host_mesh
 
 
 @dataclasses.dataclass
@@ -58,6 +65,15 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float,
     gate = CommGate(controller, job=job)
     reporter = IterationReporter(controller, job, priority=1)
 
+    with use_rules(make_host_mesh(1, 1, device=dev)):
+        return _train(cfg, opt_cfg, ds, gate, reporter, steps=steps,
+                      n_micro=n_micro, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every, log_every=log_every, dev=dev,
+                      seed=seed)
+
+
+def _train(cfg, opt_cfg, ds, gate, reporter, *, steps, n_micro, ckpt_dir,
+           ckpt_every, log_every, dev, seed) -> TrainResult:
     generator = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(cfg, opt_cfg, generator, dev)
     step_fn = build_train_step(cfg, opt_cfg, n_micro)
@@ -107,7 +123,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--full", action="store_true",
-                    help="full-size config on one card")
+                    help="full-size config on one card (1 x 1 mesh)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)

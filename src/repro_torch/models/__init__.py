@@ -1,8 +1,10 @@
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .convert import params_from_jax
-from .model import (decode_step, forward, init_cache, init_model, loss_fn,
+from .model import (abstract_params, cache_logical, decode_step, forward,
+                    init_cache, init_model, logical_specs, loss_fn,
                     param_count, prefill)
 
-__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "decode_step", "forward",
-           "init_cache", "init_model", "loss_fn", "param_count",
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "abstract_params",
+           "cache_logical", "decode_step", "forward", "init_cache",
+           "init_model", "logical_specs", "loss_fn", "param_count",
            "params_from_jax", "prefill"]

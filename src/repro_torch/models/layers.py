@@ -2,8 +2,11 @@
 
 Plain PyTorch, the JAX package's ``models/layers.py`` op for op.  Parameters
 are nested dicts of tensors; each ``init_*`` draws from an explicit
-``torch.Generator`` on the generator's device and returns the params (the
-port runs on one card, so there are no logical sharding specs).
+``torch.Generator`` on the generator's device and returns the params, and
+the matching ``*_specs`` gives their logical axes (the JAX init's second
+return value).  ``logical_shard`` sits where the JAX package's does: it
+redistributes DTensors under ``sharding.use_rules`` and leaves plain
+tensors alone.
 
 ``attention_layer`` sends a fresh prompt on a CUDA device through the flash
 kernel (``kernels.ops.flash_attention``); every other call, and every call
@@ -17,8 +20,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..kernels import ops
+from ..sharding import logical_shard
+from ..sharding.local import is_dtensor, local_range, on_local, settled
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -29,7 +35,10 @@ Index = Union[int, torch.Tensor]
 def truncated_normal(generator: torch.Generator, shape: Tuple[int, ...],
                      dtype: torch.dtype, std: float) -> torch.Tensor:
     """``std`` times a standard normal truncated to [-2, 2], drawn in float32
-    on the generator's device and cast to ``dtype``."""
+    on the generator's device and cast to ``dtype``; on the meta device
+    (``models.abstract_params``) nothing is drawn."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(std).to(dtype)
@@ -63,6 +72,12 @@ def grad_bf16_barrier(x: torch.Tensor) -> torch.Tensor:
 def init_rmsnorm(d: int, dtype: torch.dtype,
                  device: Optional[torch.device] = None) -> Dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def norm_specs(bias: bool = False) -> Dict:
+    """Logical axes of a norm's parameters (layernorm: ``bias``)."""
+    return ({"scale": (None,), "bias": (None,)} if bias
+            else {"scale": (None,)})
 
 
 def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -218,14 +233,137 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def attention_specs(cfg: ModelConfig) -> Dict:
+    s = {"wq": ("w_embed", "w_heads"), "wk": ("w_embed", "w_heads"),
+         "wv": ("w_embed", "w_heads"), "wo": ("w_heads", "w_embed")}
+    if cfg.qk_norm:
+        s["q_norm"], s["k_norm"] = norm_specs(), norm_specs()
+    return s
+
+
 def _write(buf: torch.Tensor, new: torch.Tensor, index: Index) -> None:
-    """``buf[:, index:index + S] = new`` along the sequence axis, in place."""
+    """``buf[:, index:index + S] = new`` along the sequence axis, in place
+    (on DTensors, in each rank's block: :func:`_write_local`)."""
     new = new.to(buf.dtype)
-    if isinstance(index, int):
+    if is_dtensor(buf):
+        _write_local(buf, new, index)
+    elif isinstance(index, int):
         buf[:, index:index + new.shape[1]] = new
     else:
         rows = index + torch.arange(new.shape[1], device=buf.device)
         buf.index_copy_(1, rows.long(), new)
+
+
+def _write_local(buf, new, index: Index) -> None:
+    """The cache write into a DTensor buffer (B, Smax, ...) whose sequence
+    axis may be split over the mesh (the ``kv_seq`` layout): ``new`` takes
+    the buffer's layout but whole along the sequence, and each rank writes
+    the rows that fall in its block.  DTensor has no rule for an in-place
+    write into a slice of a split dim."""
+    mesh = buf.device_mesh
+    want = [Replicate() if pl.is_shard() and pl.dim == 1 else pl
+            for pl in buf.placements]
+    new_l = new.redistribute(mesh, want).to_local()
+    buf_l = buf.to_local()
+    lo, length = local_range(buf, 1)
+    if isinstance(index, int):  # the rows are known on the host
+        a, b = max(index, lo), min(index + new_l.shape[1], lo + length)
+        if a < b:
+            buf_l[:, a - lo:b - lo] = new_l[:, a - index:b - index]
+        return
+    rows = index + torch.arange(new_l.shape[1], device=buf_l.device) - lo
+    hit = (rows >= 0) & (rows < length)
+    at = rows.clamp(0, length - 1).long()
+    keep = hit.reshape(1, -1, *([1] * (new_l.dim() - 2)))
+    buf_l.index_copy_(1, at, torch.where(keep, new_l,
+                                         buf_l.index_select(1, at)))
+
+
+def _attend(q, k, v, q_offset, kv_len, fn, name: str) -> torch.Tensor:
+    """``fn(q, k, v, q_offset, kv_len)`` over (B, S, H, D) operands and
+    (B,) row offsets and lengths, through :func:`on_local`: on DTensors on
+    each rank's block, as the kernels must and as attention allows (it is
+    independent across batch rows and kv-head groups).  q keeps its layout
+    (batch and heads may be split, sequence and head dim whole); k and v
+    take q's batch split and, where the kv heads divide q's head split,
+    its head split, else they are whole and each rank takes the kv heads
+    its q heads attend to; a sequence-split cache (the ``kv_seq`` layout)
+    is gathered first; the row vectors take q's batch split.  The output
+    keeps q's layout."""
+    layouts = grads = None
+    heads = slice(None)
+    if is_dtensor(q):
+        q = settled(q)
+        mesh = q.device_mesh
+        kv, kv_grad, rows = [], [], []
+        for i, pq in enumerate(q.placements):
+            batch = pq.is_shard() and pq.dim % 4 == 0
+            rows.append(Shard(0) if batch else Replicate())
+            if batch:
+                kv.append(Shard(0))
+                kv_grad.append(Shard(0))
+            elif (pq.is_shard() and mesh.shape[i] > 1
+                  and k.shape[2] % mesh.shape[i]):
+                kv.append(Replicate())  # each rank slices its kv heads
+                kv_grad.append(Partial())
+            else:
+                kv.append(pq)
+                kv_grad.append(pq)
+        head_split = any(pq.is_shard() and pq.dim % 4 == 2 and n > 1
+                         for pq, n in zip(q.placements, mesh.shape))
+        kv_split = any(p.is_shard() and p.dim == 2 and n > 1
+                       for p, n in zip(kv, mesh.shape))
+        if head_split and not kv_split:
+            start, n = local_range(q, 2)
+            group = q.shape[2] // k.shape[2]
+            if n % group and group % n:
+                raise ValueError(f"{name}: a rank's {n} q heads straddle "
+                                 f"kv groups of {group}")
+            heads = slice(start // group, (start + n - 1) // group + 1)
+        layouts = (None, kv, kv, rows, rows)
+        grads = (None, kv_grad, kv_grad, None, None)
+
+    def local(q, k, v, q_offset, kv_len):
+        return fn(q, k[:, :, heads], v[:, :, heads], q_offset, kv_len)
+
+    return on_local(local, (q, k, v, q_offset, kv_len),
+                    ((1, 3), (1, 3), (1, 3), (), ()), name, layouts=layouts,
+                    grads=grads)
+
+
+class _SameLayoutGrad(torch.autograd.Function):
+    """Identity on a DTensor whose gradient takes the forward's layout:
+    the merged heads' gradient would come back split where the heads are
+    not, and the heads cannot be split out of it again."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, layout = ctx.layout
+        return g if g.placements == layout else g.redistribute(mesh, layout)
+
+
+def _same_layout_grad(x: torch.Tensor) -> torch.Tensor:
+    return _SameLayoutGrad.apply(x) if is_dtensor(x) else x
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose last dim is split
+    over more ranks than there are heads (or unevenly) is gathered on that
+    mesh dim first: DTensor can only split a sharded dim at whole
+    heads."""
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        fixed = [Replicate() if (p.is_shard() and p.dim % t.dim() == 2
+                                 and n % mesh.shape[i]) else p
+                 for i, p in enumerate(t.placements)]
+        if fixed != list(t.placements):
+            t = t.redistribute(mesh, fixed)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
 
 
 def attention_layer(
@@ -255,9 +393,12 @@ def attention_layer(
              and (cache is None or (isinstance(cache_index, int)
                                     and cache_index == 0)))
 
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (src @ p["wk"]).reshape(b, src.shape[1], n_kv, hd)
-    v = (src @ p["wv"]).reshape(b, src.shape[1], n_kv, hd)
+    q = split_heads(x @ p["wq"], h, hd)
+    k = split_heads(src @ p["wk"], n_kv, hd)
+    v = split_heads(src @ p["wv"], n_kv, hd)
+    q = logical_shard(q, "batch", None, "heads", None)
+    k = logical_shard(k, "batch", None, "kv_heads", None)
+    v = logical_shard(v, "batch", None, "kv_heads", None)
 
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
@@ -287,6 +428,8 @@ def attention_layer(
         ck, cv = cache
         _write(ck, k, cache_index)
         _write(cv, v, cache_index)
+        ck = logical_shard(ck, "batch", "kv_seq", None, None)
+        cv = logical_shard(cv, "batch", "kv_seq", None, None)
         new_cache = (ck, cv)
         kv_len = torch.full((b,), 0, dtype=torch.int32,
                             device=x.device) + (cache_index + s)
@@ -295,17 +438,26 @@ def attention_layer(
     if fresh and q.is_cuda:
         if cache is not None:
             k, v = k.to(ck.dtype), v.to(cv.dtype)
-        out = ops.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal, window).transpose(1, 2)
+
+        def flash(q, k, v, q_offset, kv_len):
+            return ops.flash_attention(
+                q.transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), causal,
+                window).transpose(1, 2)
+        out = _attend(q, k, v, None, None, flash, "flash_attention")
     else:
         if cache is not None:
             k, v = new_cache
-        out = chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                window=window, kv_len=kv_len,
-                                chunk=cfg.attn_chunk)
-    out = out.reshape(b, s, h * hd) @ p["wo"]
-    return out, new_cache
+
+        def chunked(q, k, v, q_offset, kv_len):
+            return chunked_attention(
+                q, k, v, causal=causal, q_offset=q_offset, window=window,
+                kv_len=kv_len, chunk=cfg.attn_chunk)
+        out = _attend(q, k, v, q_offset, kv_len, chunked,
+                      "chunked_attention")
+    out = _same_layout_grad(out.reshape(b, s, h * hd)) @ p["wo"]
+    return logical_shard(out, "batch", None, None), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +476,12 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def mlp_specs() -> Dict:
+    return {"w_gate": ("w_embed", "w_mlp"), "w_up": ("w_embed", "w_mlp"),
+            "w_down": ("w_mlp", "w_embed")}
+
+
 def mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = logical_shard(h, "batch", None, "mlp_act")
+    return logical_shard(h @ p["w_down"], "batch", None, None)

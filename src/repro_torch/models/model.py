@@ -28,9 +28,14 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import Partial, Replicate
 
 from .. import _device
-from .._tree import tree_map
+from .._tree import leaves, tree_map
+from ..sharding import (best_spec, distribute, gather_fsdp, logical_shard,
+                        shard_tree)
+from ..sharding.local import (is_dtensor, local_range, on_local, replicated,
+                              settled, split_dims)
 from . import layers as L
 from . import moe as MOE
 from . import recurrent as R
@@ -41,6 +46,27 @@ Tree = Dict[str, Union["Tree", torch.Tensor]]
 
 def _stack(trees: List[Tree]) -> Tree:
     return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def _gather(params: Tree, cfg: ModelConfig, key: str) -> Callable:
+    """For a stack of layers ``params[key]``: a function that makes one
+    layer's DTensor parameters whole over their FSDP axes
+    (``sharding.gather_fsdp``), called inside the layer's body so that its
+    gathered weights live while it runs (and are gathered again by remat's
+    recompute); the identity on plain tensors."""
+    stack = params.get(key)
+    if stack is None or not is_dtensor(leaves(stack)[0]):
+        return lambda tree: tree
+    specs = tree_map(lambda s: tuple(s)[1:], logical_specs(cfg)[key])
+    return lambda tree: gather_fsdp(tree, specs)
+
+
+def _layers(params: Tree, cfg: ModelConfig, key: str, n: int):
+    """The ``n`` layers of ``params[key]`` one at a time, each made whole
+    over its FSDP axes as it is reached (serving: no remat)."""
+    whole = _gather(params, cfg, key)
+    for lp in _unstack(params, key, n):
+        yield whole(lp)
 
 
 def _unstack(params: Tree, key: str, n: int) -> List[Tree]:
@@ -162,6 +188,70 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     return tree_map(lambda t: t.to(dev), p)
 
 
+class _ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the meta device: the init
+    then makes tensors with shapes and dtypes and draws nothing."""
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    """:func:`init_model`'s parameters as meta tensors: their shapes and
+    dtypes, nothing drawn or allocated (the counterpart of the JAX
+    package's ``jax.eval_shape`` of the init)."""
+    return init_model(cfg, _ShapeOnly(), device="meta")
+
+
+def _stack_specs(spec: Tree) -> Tree:
+    """A per-layer spec tree with the stacked leading (layer) axis."""
+    return tree_map(lambda s: (None,) + tuple(s), spec)
+
+
+def logical_specs(cfg: ModelConfig) -> Tree:
+    """The logical axes of :func:`init_model`'s parameters, leaf for leaf
+    (the JAX package's ``init_model`` returns them as its second value):
+    a tuple with one logical axis name, or None, per tensor dim."""
+    norm = L.norm_specs
+    s: Tree = {"embed": ("w_vocab", "w_embed"),
+               "head": ("w_embed", "w_vocab"), "ln_f": norm()}
+    if cfg.family in ("dense", "moe"):
+        lp: Tree = {"ln_attn": norm(), "attn": L.attention_specs(cfg),
+                    "ln_mlp": norm()}
+        if cfg.n_experts > 0:
+            lp["moe"] = MOE.moe_specs()
+            if cfg.dense_residual:
+                lp["mlp"] = L.mlp_specs()
+            if cfg.n_shared > 0:
+                lp["shared"] = L.mlp_specs()
+        else:
+            lp["mlp"] = L.mlp_specs()
+        s["layers"] = _stack_specs(lp)
+    elif cfg.family == "griffin":
+        def sub(block):
+            return {"ln": norm(), "block": block, "ln_mlp": norm(),
+                    "mlp": L.mlp_specs()}
+        n_groups, n_tail = _n_groups(cfg)
+        rg = R.rg_lru_specs()
+        s["groups"] = _stack_specs({"rg1": sub(rg), "rg2": sub(rg),
+                                    "attn": sub(L.attention_specs(cfg))})
+        if n_tail:
+            s["tail"] = _stack_specs(sub(rg))
+    elif cfg.family == "xlstm":
+        s["pairs"] = _stack_specs({"ln_s": norm(), "slstm": R.slstm_specs(),
+                                   "ln_m": norm(), "mlstm": R.mlstm_specs()})
+    elif cfg.family == "encdec":
+        ln = norm(bias=True)
+        s["enc"] = _stack_specs({"ln_attn": ln, "attn": L.attention_specs(cfg),
+                                 "ln_mlp": ln, "mlp": L.mlp_specs()})
+        s["dec"] = _stack_specs({
+            "ln_self": ln, "self_attn": L.attention_specs(cfg),
+            "ln_cross": ln, "cross_attn": L.attention_specs(cfg),
+            "ln_mlp": ln, "mlp": L.mlp_specs()})
+        s["ln_enc"] = ln
+    else:
+        raise ValueError(cfg.family)
+    return s
+
+
 def param_count(params: Tree) -> int:
     n = 0
     for v in params.values():
@@ -249,9 +339,11 @@ def _encoder(params: Tree, cfg: ModelConfig,
     """Whisper encoder over stub frame embeddings (bidirectional).  The JAX
     package passes positions 0..F-1 explicitly; the port passes None, the
     same positions, so that on the card the frames take the flash kernel."""
-    x = frames.to(cfg.dtype)
+    x = logical_shard(frames.to(cfg.dtype), "batch", None, None)
+    whole = _gather(params, cfg, "enc")
 
     def body(x, lp):
+        lp = whole(lp)
         h, _ = L.attention_layer(
             lp["attn"], cfg, L.layernorm(lp["ln_attn"], x, cfg.norm_eps),
             causal=False)
@@ -272,9 +364,60 @@ def _need_frames(cfg: ModelConfig, frames: Optional[torch.Tensor]) -> None:
             f"(B, S // {cfg.enc_frames_ratio}, {cfg.d_model})")
 
 
-def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _embed(params: Tree, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The token rows of the table, through :func:`on_local`: on a DTensor
+    table vocab-parallel (the table is gathered over the mesh dims that
+    split the tokens, each rank looks up the tokens that fall in its vocab
+    rows, zeros elsewhere, and the result is a partial sum over the mesh
+    dims that split the vocab: one rank holds each row, so the sum is
+    exact).  DTensor's own rule for ``embedding`` (a masked partial) fails
+    in the backward of a sliced micro-batch."""
+    table = logical_shard(params["embed"], "w_vocab", None)
+    lookup, lo = None, 0
+    if is_dtensor(table):
+        mesh = table.device_mesh
+        if not is_dtensor(tokens):  # the global batch, alike on every rank
+            tokens = distribute(tokens, best_spec(tokens.shape,
+                                                  ("batch", None)), mesh)
+        tokens = logical_shard(tokens, "batch", None)
+        tok = list(tokens.placements)
+        want = [Replicate() if (t.is_shard() and mesh.shape[i] > 1) else pl
+                for i, (t, pl) in enumerate(zip(tok, table.placements))]
+        if any(pl.is_shard() and pl.dim != 0 for pl in want):
+            raise ValueError(f"embedding: the model dim of the table is "
+                             f"split ({table.placements})")
+        lo = local_range(table, 0, want)[0]
+        lookup = dict(
+            layouts=(None, want),
+            grads=(None, [Partial() if t.is_shard() else pl
+                          for t, pl in zip(tok, want)]),
+            out=[Partial() if pl.is_shard() else t
+                 for t, pl in zip(tok, want)])
+
+    def rows(ids, block):
+        if block.shape[0] == table.shape[0]:  # the whole vocab
+            return torch.nn.functional.embedding(ids, block)
+        hit = (ids >= lo) & (ids < lo + block.shape[0])
+        out = torch.nn.functional.embedding(torch.where(hit, ids - lo, 0),
+                                            block)
+        return out * hit[..., None].to(out.dtype)
+
+    x = on_local(rows, (tokens, table), ((), (1,)), "embedding",
+                 **(lookup or {}))
+    return logical_shard(x.to(cfg.dtype), "batch", None, None)
+
+
+def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor,
+            shard: bool = True) -> torch.Tensor:
+    """The head over the final norm; ``shard`` constrains the logits to
+    (batch, -, vocab_act) as the JAX package's forward and decode do (its
+    prefill does not)."""
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return x.to(cfg.logit_dtype) @ params["head"].to(cfg.logit_dtype)
+    head = gather_fsdp(params["head"], ("w_embed", "w_vocab"))
+    logits = x.to(cfg.logit_dtype) @ head.to(cfg.logit_dtype)
+    return logical_shard(logits, "batch", None, "vocab_act") if shard \
+        else logits
 
 
 def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
@@ -311,11 +454,13 @@ def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     a float32 scalar summed over the layers (zero without experts).
     ``positions``: (B, S), or (3, B, S) for M-RoPE; None for 0..S-1.
     ``frames``: the encdec family's stub frame embeddings (B, F, d_model)."""
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "moe"):
+        whole = _gather(params, cfg, "layers")
+
         def layer(x, aux, lp):
-            x, a, _ = _dense_block_seq(cfg, x, lp, positions)
+            x, a, _ = _dense_block_seq(cfg, x, whole(lp), positions)
             return x, aux + a
 
         layer = _maybe_remat(layer, cfg)
@@ -323,15 +468,19 @@ def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             x, aux = layer(x, aux, lp)
     elif cfg.family == "griffin":
         n_groups, n_tail = _n_groups(cfg)
+        whole_g, whole_t = (_gather(params, cfg, "groups"),
+                            _gather(params, cfg, "tail"))
 
         def body(x, gp):
+            gp = whole_g(gp)
             x, _, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
             x, _, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
             x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions)
             return x
 
         def tbody(x, tp):
-            x, _, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
+            x, _, _ = _griffin_sub_seq(cfg, x, whole_t(tp), RGLRU,
+                                       positions)
             return x
 
         body, tbody = _maybe_remat(body, cfg), _maybe_remat(tbody, cfg)
@@ -340,14 +489,18 @@ def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
         for tp in _unstack(params, "tail", n_tail):
             x = tbody(x, tp)
     elif cfg.family == "xlstm":
-        body = _maybe_remat(lambda x, pp: _xlstm_pair_seq(cfg, x, pp), cfg)
+        whole = _gather(params, cfg, "pairs")
+        body = _maybe_remat(
+            lambda x, pp: _xlstm_pair_seq(cfg, x, whole(pp)), cfg)
         for pp in _unstack(params, "pairs", cfg.n_layers // 2):
             x = body(x, pp)
     elif cfg.family == "encdec":
         _need_frames(cfg, frames)
         enc_out = _encoder(params, cfg, frames)
+        whole = _gather(params, cfg, "dec")
         body = _maybe_remat(
-            lambda x, lp, enc: _dec_layer_seq(cfg, x, lp, enc)[0], cfg)
+            lambda x, lp, enc: _dec_layer_seq(cfg, x, whole(lp), enc)[0],
+            cfg)
         for lp in _unstack(params, "dec", cfg.n_layers):
             x = body(x, lp, enc_out)
     else:
@@ -380,6 +533,65 @@ class _TokenCrossEntropy(torch.autograd.Function):
         return p.mul_(g[..., None]), None
 
 
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """:class:`_TokenCrossEntropy` on each rank's block of logits split
+    over the vocab: the row max, the sum of exponentials and the gold
+    logit (held by one rank) are all-reduced over the mesh dims that split
+    the vocab, (B, S) floats each, as a reduction over a sharded vocab
+    lowers in the JAX package; the backward needs no communication.
+    ``lo`` is the first vocab id of the rank's block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, groups):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            for g in groups:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+            return t
+
+        m = reduce(logits.amax(dim=-1), "max")
+        sumexp = reduce(torch.sub(logits, m[..., None]).exp_().sum(dim=-1),
+                        "sum")
+        logz = m + sumexp.log()
+        local = labels - lo
+        hit = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(hit, local, 0)
+        gold = reduce(logits.gather(-1, local[..., None])[..., 0] * hit,
+                      "sum")
+        ctx.save_for_backward(logits, logz, local, hit)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, local, hit = ctx.saved_tensors
+        p = torch.sub(logits, logz[..., None]).exp_()
+        p.scatter_add_(-1, local[..., None], -hit[..., None].to(p.dtype))
+        return p.mul_(g[..., None]), None, None, None
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-token cross entropy (B, S), through :func:`on_local`: on
+    DTensors each rank computes its batch rows; where the logits' vocab is
+    split over the mesh (the ``vocab_act`` layout), vocab-parallel."""
+    if not is_dtensor(logits) or 2 not in split_dims(logits):
+        return on_local(_TokenCrossEntropy.apply, (logits, labels),
+                        ((2,), ()), "cross_entropy")
+    logits = settled(logits)
+    mesh = logits.device_mesh
+    groups = [mesh.get_group(i) for i, p in enumerate(logits.placements)
+              if p.is_shard() and p.dim == 2 and mesh.shape[i] > 1]
+    # the labels and the result split as the logits' rows are
+    rows = [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in logits.placements]
+    lo, _ = local_range(logits, 2)
+    return on_local(
+        lambda lg, lb: _VocabParallelCrossEntropy.apply(lg, lb, lo, groups),
+        (logits, labels), ((), ()), "cross_entropy",
+        layouts=(None, rows), out=rows)
+
+
 def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -388,11 +600,14 @@ def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     logits, aux = forward(params, cfg, batch["tokens"],
                           positions=batch.get("positions"),
                           frames=batch.get("frames"))
-    labels = batch["labels"]
+    labels = logical_shard(batch["labels"], "batch", None)
     valid = labels >= 0
-    ce = _TokenCrossEntropy.apply(logits, labels.clamp_min(0).long()) * valid
-    n_valid = valid.sum()
-    loss = ce.sum() / n_valid.clamp_min(1)
+    ce = _cross_entropy(logits, labels.clamp_min(0).long()) * valid
+    # sums over DTensor rows are reduced here: a pending (partial) sum
+    # would read back as one rank's share
+    n_valid = replicated(valid.sum())
+    loss = replicated(ce.sum()) / n_valid.clamp_min(1)
+    aux = replicated(aux)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux,
                                      "tokens": n_valid}
 
@@ -466,6 +681,55 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     raise ValueError(cfg.family)
 
 
+def cache_logical(cfg: ModelConfig, head_sharded: bool = False
+                  ) -> Dict[str, Tuple]:
+    """Logical axes for each decode-state leaf.
+
+    Default is seq-sharded cache (flash-decoding style -- works for every
+    kv count). ``head_sharded`` prefers the kv-head axis (no cross-shard
+    softmax combine) and is valid when n_kv % tp == 0 (perf lever for
+    qwen2-moe/whisper-class archs)."""
+    if cfg.family in ("dense", "moe"):
+        kv = ((None, "batch", None, "kv_heads", None) if head_sharded
+              else (None, "batch", "kv_seq", "kv_heads", None))
+        return {"k": kv, "v": kv, "index": ()}
+    if cfg.family == "griffin":
+        kv = (None, "batch", "kv_seq", "kv_heads", None)
+        d = {
+            "k": kv, "v": kv,
+            "conv": (None, None, "batch", None, "w_state"),
+            "h": (None, None, "batch", "w_state"),
+            "index": (),
+        }
+        n_tail = cfg.n_layers - 3 * (cfg.n_layers // 3)
+        if n_tail:
+            d["tail_conv"] = (None, "batch", None, "w_state")
+            d["tail_h"] = (None, "batch", "w_state")
+        return d
+    if cfg.family == "xlstm":
+        return {
+            "s_c": (None, "batch", "w_state"), "s_n": (None, "batch", "w_state"),
+            "s_m": (None, "batch", "w_state"),
+            "m_C": (None, "batch", "heads", None, None),
+            "m_n": (None, "batch", "heads", None),
+            "m_m": (None, "batch", "heads"),
+            "index": (),
+        }
+    if cfg.family == "encdec":
+        kv = (None, "batch", "kv_seq", "kv_heads", None)
+        return {"k": kv, "v": kv, "enc_out": ("batch", None, None), "index": ()}
+    raise ValueError(cfg.family)
+
+
+def shard_cache(cache: Tree, cfg: ModelConfig) -> Tree:
+    """A decode state distributed by :func:`cache_logical` under the
+    current sharding rules (its step index stays a plain tensor, alike on
+    every rank)."""
+    specs = cache_logical(cfg)
+    return {k: v if k == "index" else shard_tree(v, specs[k])
+            for k, v in cache.items()}
+
+
 _XLSTM_STATE = (("s_c", "c"), ("s_n", "n"), ("s_m", "m"))
 _MLSTM_STATE = (("m_C", "C"), ("m_n", "n"), ("m_m", "m"))
 
@@ -481,15 +745,18 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), prefill=True,
                        device=params["embed"].device)
-    x = params["embed"][tokens].to(cfg.dtype)
+    if is_dtensor(params["embed"]):
+        cache = shard_cache(cache, cfg)
+    x = _embed(params, cfg, tokens)
     if cfg.family in ("dense", "moe"):
-        for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
+        for i, lp in enumerate(_layers(params, cfg, "layers",
+                                       cfg.n_layers)):
             x, _, _ = _dense_block_seq(cfg, x, lp, positions,
                                        cache=(cache["k"][i], cache["v"][i]),
                                        cache_index=0)
     elif cfg.family == "griffin":
         n_groups, n_tail = _n_groups(cfg)
-        for i, gp in enumerate(_unstack(params, "groups", n_groups)):
+        for i, gp in enumerate(_layers(params, cfg, "groups", n_groups)):
             x, s1, _ = _griffin_sub_seq(cfg, x, gp["rg1"], RGLRU, positions)
             x, s2, _ = _griffin_sub_seq(cfg, x, gp["rg2"], RGLRU, positions)
             x, _, _ = _griffin_sub_seq(cfg, x, gp["attn"], ATTN, positions,
@@ -498,12 +765,13 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             for j, st in enumerate((s1, s2)):
                 cache["conv"][i, j] = st["conv"]
                 cache["h"][i, j] = st["h"]
-        for i, tp in enumerate(_unstack(params, "tail", n_tail)):
+        for i, tp in enumerate(_layers(params, cfg, "tail", n_tail)):
             x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, positions)
             cache["tail_conv"][i] = st["conv"]
             cache["tail_h"][i] = st["h"]
     elif cfg.family == "xlstm":
-        for i, pp in enumerate(_unstack(params, "pairs", cfg.n_layers // 2)):
+        for i, pp in enumerate(_layers(params, cfg, "pairs",
+                                       cfg.n_layers // 2)):
             x, s_state, m_state = _xlstm_pair_seq(cfg, x, pp,
                                                   return_state=True)
             for key, k in _XLSTM_STATE:
@@ -513,7 +781,7 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     elif cfg.family == "encdec":
         _need_frames(cfg, frames)
         enc_out = _encoder(params, cfg, frames)
-        for i, lp in enumerate(_unstack(params, "dec", cfg.n_layers)):
+        for i, lp in enumerate(_layers(params, cfg, "dec", cfg.n_layers)):
             x, _ = _dec_layer_seq(cfg, x, lp, enc_out,
                                   cache=(cache["k"][i], cache["v"][i]),
                                   cache_index=0)
@@ -522,7 +790,7 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     else:
         raise ValueError(cfg.family)
     cache["index"].fill_(s)
-    return _logits(params, cfg, x[:, -1:]), cache
+    return _logits(params, cfg, x[:, -1:], shard=False), cache
 
 
 def _ring_positions(win: int, index: torch.Tensor) -> torch.Tensor:
@@ -540,17 +808,19 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     advanced; the step reads no value back to the host."""
     b = tokens.shape[0]
     index = cache["index"]
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     pos = index.reshape(1, 1).expand(b, 1)
     if cfg.family in ("dense", "moe"):
-        for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
+        for i, lp in enumerate(_layers(params, cfg, "layers",
+                                       cfg.n_layers)):
             x, _, _ = _dense_block_seq(cfg, x, lp, pos,
                                        cache=(cache["k"][i], cache["v"][i]),
                                        cache_index=index)
     elif cfg.family == "griffin":
         x = _griffin_decode(params, cfg, cache, x, pos)
     elif cfg.family == "xlstm":
-        for i, pp in enumerate(_unstack(params, "pairs", cfg.n_layers // 2)):
+        for i, pp in enumerate(_layers(params, cfg, "pairs",
+                                       cfg.n_layers // 2)):
             y, s_new = R.slstm_scan(
                 pp["slstm"], L.rmsnorm(pp["ln_s"], x, cfg.norm_eps),
                 state={k: cache[key][i] for key, k in _XLSTM_STATE})
@@ -564,7 +834,7 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
             for key, k in _MLSTM_STATE:
                 cache[key][i] = m_new[k]
     elif cfg.family == "encdec":
-        for i, lp in enumerate(_unstack(params, "dec", cfg.n_layers)):
+        for i, lp in enumerate(_layers(params, cfg, "dec", cfg.n_layers)):
             x, _ = _dec_layer_seq(cfg, x, lp, cache["enc_out"], positions=pos,
                                   cache=(cache["k"][i], cache["v"][i]),
                                   cache_index=index)
@@ -580,7 +850,7 @@ def _griffin_decode(params: Tree, cfg: ModelConfig, cache: Tree,
     b = x.shape[0]
     index = cache["index"]
     win = cache["k"].shape[2]
-    slot = (index % win).reshape(1).long()
+    slot = index % win
     kpos = _ring_positions(win, index)
     valid = (kpos <= index) & (index - kpos < win) & (kpos >= 0)
     hd, n_h, n_kv = cfg.head_dim, cfg.n_heads, cfg.n_kv
@@ -593,8 +863,8 @@ def _griffin_decode(params: Tree, cfg: ModelConfig, cache: Tree,
         v = (h_in @ ap["wv"]).reshape(b, 1, n_kv, hd)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
+        L._write(ck, k, slot)  # in place, in each rank's block on DTensors
+        L._write(cv, v, slot)
         sc = torch.einsum(
             "bqkgd,bckd->bkgqc",
             q.reshape(b, 1, n_kv, n_h // n_kv, hd).float(),
@@ -608,14 +878,14 @@ def _griffin_decode(params: Tree, cfg: ModelConfig, cache: Tree,
                              L.rmsnorm(sp["ln_mlp"], x_new, cfg.norm_eps))
 
     n_groups, n_tail = _n_groups(cfg)
-    for i, gp in enumerate(_unstack(params, "groups", n_groups)):
+    for i, gp in enumerate(_layers(params, cfg, "groups", n_groups)):
         for j, name in enumerate(("rg1", "rg2")):
             st = {"conv": cache["conv"][i, j], "h": cache["h"][i, j]}
             x, st, _ = _griffin_sub_seq(cfg, x, gp[name], RGLRU, pos, state=st)
             cache["conv"][i, j] = st["conv"]
             cache["h"][i, j] = st["h"]
         x = attn_ring(gp["attn"], x, cache["k"][i], cache["v"][i])
-    for i, tp in enumerate(_unstack(params, "tail", n_tail)):
+    for i, tp in enumerate(_layers(params, cfg, "tail", n_tail)):
         st = {"conv": cache["tail_conv"][i], "h": cache["tail_h"][i]}
         x, st, _ = _griffin_sub_seq(cfg, x, tp, RGLRU, pos, state=st)
         cache["tail_conv"][i] = st["conv"]

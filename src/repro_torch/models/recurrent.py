@@ -17,11 +17,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from ..kernels import ops
+from ..sharding import logical_shard
+from ..sharding.local import is_dtensor, on_local, settled
 from ._assoc_scan import associative_scan
 from .config import ModelConfig
-from .layers import truncated_normal
+from .layers import split_heads, truncated_normal
 
 
 def init_rg_lru(cfg: ModelConfig, generator: torch.Generator) -> Dict:
@@ -45,11 +48,24 @@ def init_rg_lru(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     }
 
 
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``, elementwise on each rank's block for a DTensor
+    (DTensor has no sharding rule for its backward)."""
+    return on_local(F.logsigmoid, (x,), ((),), "logsigmoid")
+
+
+def rg_lru_specs() -> Dict:
+    return {"w_x": ("w_embed", "w_state"), "w_gate": ("w_embed", "w_state"),
+            "w_out": ("w_state", "w_embed"), "w_a": ("w_state", None),
+            "w_i": ("w_state", None), "lam": (None,),
+            "conv": (None, "w_state")}
+
+
 def _rg_gates(p: Dict, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a_t (decay) and gated input multiplier, both fp32. u: (..., W)."""
     r = torch.sigmoid((u @ p["w_a"]).float())
     i = torch.sigmoid((u @ p["w_i"]).float())
-    log_a = 8.0 * r * F.logsigmoid(p["lam"].float())
+    log_a = 8.0 * r * _logsigmoid(p["lam"].float())
     return torch.exp(log_a), i
 
 
@@ -64,7 +80,11 @@ def rg_lru_scan(p: Dict, u: torch.Tensor, h0: Optional[torch.Tensor] = None
     if h0 is not None:
         # fold the carried state into the first step
         x[:, 0] += a[:, 0] * h0.float()
-    y = ops.rg_lru(a, x)
+    # on DTensors the kernel runs on each rank's block: the time axis must
+    # be whole there
+    a = logical_shard(a, "batch", None, "w_state")
+    x = logical_shard(x, "batch", None, "w_state")
+    y = on_local(ops.rg_lru, (a, x), ((1,), (1,)), "rg_lru")
     # clone: a view would keep the whole (B, S, W) output alive in the cache
     return y.to(u.dtype), y[:, -1].clone()
 
@@ -96,7 +116,7 @@ def griffin_recurrent_block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                             state: Optional[Dict] = None
                             ) -> Tuple[torch.Tensor, Dict]:
     """The Griffin recurrent temporal block: (conv -> RG-LRU) x gelu gate."""
-    u = x @ p["w_x"]
+    u = logical_shard(x @ p["w_x"], "batch", None, "w_state")
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     if state is None or u.shape[1] > 1:  # sequence mode (prefill)
         conv_in = None if state is None else state["conv"]
@@ -107,7 +127,8 @@ def griffin_recurrent_block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         u, conv_state = causal_conv1d(p["conv"], u, state["conv"])
         y, h = rg_lru_step(p, u, state["h"])
         new_state = {"conv": conv_state, "h": h}
-    return (y * gate) @ p["w_out"], new_state
+    return logical_shard((y * gate) @ p["w_out"], "batch", None, None), \
+        new_state
 
 
 def init_griffin_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -138,6 +159,11 @@ def init_slstm(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     }
 
 
+def slstm_specs() -> Dict:
+    return {k: ("w_embed", "w_state")
+            for k in ("w_z", "w_i", "w_f", "w_o", "w_out")}
+
+
 def _slstm_combine(c1, c2):
     f1, m1, cc1, nn1 = c1
     f2, m2, cc2, nn2 = c2
@@ -157,7 +183,7 @@ def slstm_scan(p: Dict, x: torch.Tensor, state: Optional[Dict] = None
     stabilized n); a carried ``state`` (c, n, m) is folded into step 0."""
     z = torch.tanh((x @ p["w_z"]).float())
     log_i = (x @ p["w_i"]).float()
-    log_f = F.logsigmoid((x @ p["w_f"]).float())
+    log_f = _logsigmoid((x @ p["w_f"]).float())
     o = torch.sigmoid((x @ p["w_o"]).float())
 
     m0 = log_i  # per-step stabilizer
@@ -174,9 +200,14 @@ def slstm_scan(p: Dict, x: torch.Tensor, state: Optional[Dict] = None
         c_elems = [c_elems[0]] + [
             torch.cat([v[:, None], e[:, 1:]], dim=1)
             for v, e in zip((mm, cc, nn), c_elems[1:])]
-    _, m, c, n = associative_scan(_slstm_combine, c_elems, axis=1)
+    # the scan is along time and elementwise across batch rows and state
+    # columns: on DTensors each rank scans its block (time whole)
+    _, m, c, n = on_local(
+        lambda *e: tuple(associative_scan(_slstm_combine, list(e), axis=1)),
+        [logical_shard(e, "batch", None, "w_state") for e in c_elems],
+        ((1,),) * 4, "slstm_scan")
     h = o * (c / torch.clamp_min(n.abs(), 1.0))
-    y = h.to(x.dtype) @ p["w_out"]
+    y = logical_shard(h.to(x.dtype) @ p["w_out"], "batch", None, None)
     new_state = {"c": c[:, -1], "n": n[:, -1], "m": m[:, -1]}
     return y, new_state
 
@@ -205,43 +236,21 @@ def init_mlstm(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     }
 
 
-def mlstm_chunkwise(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    chunk: int = 256, state: Optional[Dict] = None,
-                    return_state: bool = False):
-    """Chunkwise-parallel mLSTM (matrix memory): intra-chunk quadratic with
-    decay mask + inter-chunk carried (C, n) state. x: (B, S, D); S must be
-    a multiple of ``chunk`` when it is longer.
+def mlstm_specs() -> Dict:
+    return {"w_q": ("w_embed", "w_heads"), "w_k": ("w_embed", "w_heads"),
+            "w_v": ("w_embed", "w_heads"), "w_i": ("w_embed", None),
+            "w_f": ("w_embed", None), "w_out": ("w_heads", "w_embed")}
 
-    NOTE on prefill->decode handoff: the chunkwise form carries an
-    unstabilized (C, n); the returned state therefore has m = 0 (identity
-    scale), which the step form consumes directly."""
-    b, s, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
-    chunk = min(chunk, s)
-    if s % chunk:
-        raise ValueError(f"mLSTM: sequence length {s} is not a multiple of "
-                         f"the chunk {chunk}")
 
-    def heads(w):
-        return (x @ w).reshape(b, s, nh, hd)
-
-    q = heads(p["w_q"]).float() / math.sqrt(hd)
-    k = heads(p["w_k"]).float() / math.sqrt(hd)
-    v = heads(p["w_v"]).float()
-    log_i = (x @ p["w_i"]).float()
-    log_f = F.logsigmoid((x @ p["w_f"]).float())
+def _mlstm_chunks(q, k, v, log_i, log_f, C, n, chunk: int):
+    """The chunkwise mLSTM over (B, S, H, hd) q, k, v and (B, S, H) gates
+    from carried (C, n) (zero when None): (h (B, S, H, hd), C, n)."""
+    b, s, nh, hd = q.shape
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
-                      device=x.device).tril()
-
-    if state is not None:
-        # fold a stabilized decode state back to raw scale (exp(m))
-        scale = torch.exp(state["m"].float())
-        C = state["C"].float() * scale[..., None, None]
-        n = state["n"].float() * scale[..., None]
-    else:
-        C = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
+                      device=q.device).tril()
+    if C is None:
+        C = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=q.device)
+        n = torch.zeros((b, nh, hd), dtype=torch.float32, device=q.device)
     hs = []
     for c0 in range(0, s, chunk):
         qb, kb, vb, ib, fb = (t[:, c0:c0 + chunk]
@@ -272,8 +281,65 @@ def mlstm_chunkwise(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             "bthd,bthe->bhde", kb * w_t[..., None], vb)
         n = torch.exp(f_tot)[:, :, None] * n + torch.einsum(
             "bthd,bth->bhd", kb, w_t)
-    h = torch.cat(hs, dim=1).reshape(b, s, nh * hd)
-    y = h.to(x.dtype) @ p["w_out"]
+    return torch.cat(hs, dim=1), C, n
+
+
+def _mlstm_local(q, k, v, log_i, log_f, C, n, chunk: int):
+    """:func:`_mlstm_chunks` through :func:`on_local`: on DTensors on each
+    rank's block of batch rows and heads (the recurrence runs along time
+    within a head), the gates (B, S, H) split as q's first three dims are,
+    the carried state split as the heads are."""
+    layouts = out = None
+    if is_dtensor(q):
+        layout = settled(q).placements
+        # (B, S, H, hd) -> state (B, H, ...): heads move from dim 2 to dim 1
+        state = [Shard(1) if p.is_shard() and p.dim == 2 else p
+                 for p in layout]
+        layouts = (None, layout, layout, layout, layout, state, state)
+        out = [layout, state, state]
+    return on_local(lambda *a: _mlstm_chunks(*a, chunk),
+                    (q, k, v, log_i, log_f, C, n),
+                    ((1, 3), (1, 3), (1, 3), (1,), (1,), (), ()), "mlstm",
+                    layouts=layouts, out=out)
+
+
+def mlstm_chunkwise(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    chunk: int = 256, state: Optional[Dict] = None,
+                    return_state: bool = False):
+    """Chunkwise-parallel mLSTM (matrix memory): intra-chunk quadratic with
+    decay mask + inter-chunk carried (C, n) state. x: (B, S, D); S must be
+    a multiple of ``chunk`` when it is longer.
+
+    NOTE on prefill->decode handoff: the chunkwise form carries an
+    unstabilized (C, n); the returned state therefore has m = 0 (identity
+    scale), which the step form consumes directly."""
+    b, s, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mLSTM: sequence length {s} is not a multiple of "
+                         f"the chunk {chunk}")
+
+    def heads(w):
+        return logical_shard(split_heads(x @ w, nh, hd), "batch", None,
+                             "heads", None)
+
+    q = heads(p["w_q"]).float() / math.sqrt(hd)
+    k = heads(p["w_k"]).float() / math.sqrt(hd)
+    v = heads(p["w_v"]).float()
+    log_i = logical_shard((x @ p["w_i"]).float(), "batch", None, "heads")
+    log_f = logical_shard(_logsigmoid((x @ p["w_f"]).float()), "batch",
+                          None, "heads")
+    C = n = None
+    if state is not None:
+        # fold a stabilized decode state back to raw scale (exp(m))
+        scale = torch.exp(state["m"].float())
+        C = state["C"].float() * scale[..., None, None]
+        n = state["n"].float() * scale[..., None]
+    h, C, n = _mlstm_local(q, k, v, log_i, log_f, C, n, chunk)
+    h = h.reshape(b, s, nh * hd)
+    y = logical_shard(h.to(x.dtype) @ p["w_out"], "batch", None, None)
     if return_state:
         final = {"C": C, "n": n,
                  "m": torch.zeros((b, nh), dtype=torch.float32,
@@ -293,7 +359,7 @@ def mlstm_step(p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Dict
     k = (xt @ p["w_k"]).reshape(b, nh, hd).float() / math.sqrt(hd)
     v = (xt @ p["w_v"]).reshape(b, nh, hd).float()
     log_i = (xt @ p["w_i"]).float()  # (B,H)
-    log_f = F.logsigmoid((xt @ p["w_f"]).float())
+    log_f = _logsigmoid((xt @ p["w_f"]).float())
     m_prev = state["m"]
     m = torch.maximum(log_f + m_prev, log_i)
     f_s = torch.exp(log_f + m_prev - m)[..., None]

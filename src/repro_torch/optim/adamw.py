@@ -54,8 +54,9 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def adamw_init(cfg: AdamWConfig, params) -> Dict:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    def zeros(p):  # a DTensor's moments are DTensors laid out as it is
+        return torch.zeros_like(p, dtype=cfg.moment_dtype,
+                                memory_format=torch.contiguous_format)
     step = torch.zeros((), dtype=torch.int32,
                        device=leaves(params)[0].device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),

@@ -5,8 +5,10 @@ JAX package's ``runtime/steps.py``).
 metrics)`` that splits the global batch into micro-batches (bounded
 activation memory), accumulates their gradients in ``accum_dtype`` and
 applies AdamW.  Gradients come from ``torch.autograd.grad`` over the
-parameter leaves; the port runs on one card, so there are no sharding
-constraints yet (ROADMAP A15).
+parameter leaves.  All tensors carry logical-axis sharding constraints:
+with DTensor parameters (``sharding.shard_tree``) under
+``sharding.use_rules(mesh)`` the step runs sharded over the mesh; with
+plain parameters the constraints do nothing and it runs on one device.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 from ..models import decode_step, init_model, loss_fn, prefill
 from ..models.config import ModelConfig, ShapeConfig
 from ..optim import AdamWConfig, adamw_init, adamw_update, quantize_int8
+from ..sharding import (best_spec, current_rules, distribute, logical_shard,
+                        spec_leaves)
+from ..sharding.local import is_dtensor
 from .._tree import leaves, rebuild
 
 
@@ -26,6 +31,15 @@ class TrainState:
     params: Any
     opt: Dict
     step: torch.Tensor
+
+
+def make_train_state_specs(cfg: ModelConfig, param_specs) -> TrainState:
+    """Logical specs for the TrainState (opt moments shard like params)."""
+    return TrainState(
+        params=param_specs,
+        opt={"m": param_specs, "v": param_specs, "step": ()},
+        step=(),
+    )
 
 
 def auto_microbatches(cfg: ModelConfig, shape: ShapeConfig,
@@ -69,32 +83,63 @@ def build_train_step(
     the numerics of sending the cross-pod all-reduce at int8), and applied
     by AdamW, which updates ``state``'s parameters and moments in place.
     Metrics: ``loss``, ``aux``, ``grad_norm`` and ``lr``, float32 tensors
-    on the parameters' device.  ``param_specs`` is accepted for the JAX
-    package's signature and ignored: the port shards nothing until
-    ``sharding`` is ported (ROADMAP A15)."""
-    del param_specs
+    on the parameters' device.
+
+    The batch is constrained to ("batch", ...): with DTensor parameters a
+    plain batch (the global batch, alike on every rank) becomes a DTensor
+    sharded that way.  ``param_specs`` (the logical-axis tree of
+    ``models.logical_specs``) re-constrains each micro-batch's gradients
+    to the parameter sharding right after autodiff, so that a DTensor
+    gradient is reduce-scattered to its parameter's layout instead of
+    all-reduced."""
+    spec_list = None if param_specs is None else spec_leaves(param_specs)
+
+    def _constrain_grads(grads):
+        if spec_list is None:
+            return grads
+        return [g if g is None else logical_shard(g, *sp)
+                for g, sp in zip(grads, spec_list)]
+
+    def constrain(name, x, dtensor_params):
+        if x.dim() < 2:
+            return x
+        logical = ("batch",) + (None,) * (x.dim() - 1)
+        if name == "positions":  # M-RoPE (3, B, S): batch on axis 1
+            logical = (None, "batch", None)
+        rules = current_rules()
+        if dtensor_params and rules is not None and not is_dtensor(x):
+            return distribute(x, best_spec(x.shape, logical, rules),
+                              rules.mesh)
+        return logical_shard(x, *logical)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = leaves(state.params)
-        grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+        dtensor_params = is_dtensor(params[0])
+        batch = {k: constrain(k, v, dtensor_params) for k, v in batch.items()}
+        grads = [torch.zeros_like(p, dtype=accum_dtype,
+                                  memory_format=torch.contiguous_format)
                  for p in params]
-        dev = params[0].device
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        # 0 + x is x: the sums start from the first micro-batch's values,
+        # which are DTensors when the parameters are
+        loss_sum = aux_sum = 0.0
         for i in range(n_micro):
             xs = [p.detach().requires_grad_() for p in params]
-            mb = {k: _micro_slice(v, i, n_micro) for k, v in batch.items()}
+            # DTensor gathers a sharded batch's rows to slice them: the
+            # slice is sharded again
+            mb = {k: constrain(k, _micro_slice(v, i, n_micro),
+                               dtensor_params) for k, v in batch.items()}
             loss, metrics = loss_fn(rebuild(state.params, xs), cfg, mb)
-            g = torch.autograd.grad(loss, xs, allow_unused=True)
+            g = _constrain_grads(
+                torch.autograd.grad(loss, xs, allow_unused=True))
             del xs
             with torch.no_grad():
                 for acc, gi in zip(grads, g):
                     if gi is not None:
                         acc.add_(gi)
                 del g
-                loss_sum += loss.detach()
-                aux_sum += metrics["aux"].detach()
+                loss_sum = loss_sum + loss.detach()
+                aux_sum = aux_sum + metrics["aux"].detach()
             del loss, metrics
         with torch.no_grad():
             for acc in grads:
@@ -137,7 +182,8 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      device: Union[str, torch.device] = "cuda") -> TrainState:
     """Parameters from :func:`~repro_torch.models.init_model` on
     ``device``, zero AdamW moments and step 0.  (The JAX package also
-    returns the parameters' logical sharding specs; the port has none.)"""
+    returns the parameters' logical sharding specs; the port's are
+    :func:`~repro_torch.models.logical_specs`.)"""
     params = init_model(cfg, generator, device)
     opt = adamw_init(opt_cfg, params)
     step = torch.zeros((), dtype=torch.int32, device=opt["step"].device)

@@ -4,8 +4,7 @@ A slow host manifests exactly like communication drift: iteration times
 exceed the baseline by a factor. The SAME windowed A_T/O_T rule the
 stop-and-wait controller uses for traffic drift (section III-C) doubles as
 job-level straggler detection; on trip, the runner triggers the elastic
-re-mesh path instead of a phase realign (the JAX package's
-``runtime/elastic.py``; the port's waits for the mesh, ROADMAP A15).
+re-mesh path instead of a phase realign (``runtime/elastic.py``).
 Pure Python, the JAX package's module as it is.
 """
 from __future__ import annotations

@@ -22,7 +22,7 @@ from repro.core.experiment import sweep as jsweep
 from repro.core.simulator import SimConfig as JSimConfig
 from repro_torch.runtime import (CommGate, IterationReporter, TrainState,
                                  auto_microbatches, build_serve_step,
-                                 build_train_step)
+                                 build_train_step, make_train_state_specs)
 from repro_torch.runtime import comm_gate, steps
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,7 +90,7 @@ def test_serve_decode_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("name,argv", [
     ("quickstart", []), ("cluster_sim", ["--jobs", "1"]),
-    ("serve_decode", ["--gen", "2"])])
+    ("serve_decode", ["--gen", "2"]), ("train_lm", ["--steps", "1"])])
 def test_examples_default_to_the_card(name, argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port = _load(ROOT / "examples_torch" / f"{name}.py")
@@ -100,15 +100,53 @@ def test_examples_default_to_the_card(name, argv, monkeypatch):
 
 def test_runtime_exports_the_reference_names():
     """``from repro_torch.runtime import ...`` works for every name the
-    JAX package's ``repro.runtime`` exports, but ``make_train_state_specs``,
-    which takes its sharding specs (ROADMAP C4, A16)."""
-    assert set(truntime.__all__) == set(jruntime.__all__) - {
-        "make_train_state_specs"}
+    JAX package's ``repro.runtime`` exports."""
+    assert set(truntime.__all__) == set(jruntime.__all__)
     assert (TrainState, auto_microbatches, build_serve_step,
-            build_train_step) == (steps.TrainState, steps.auto_microbatches,
-                                  steps.build_serve_step,
-                                  steps.build_train_step)
+            build_train_step, make_train_state_specs) == (
+                steps.TrainState, steps.auto_microbatches,
+                steps.build_serve_step, steps.build_train_step,
+                steps.make_train_state_specs)
     assert (CommGate, IterationReporter) == (comm_gate.CommGate,
                                              comm_gate.IterationReporter)
     for name in truntime.__all__:
         assert getattr(truntime, name) is not None, name
+
+
+def test_train_lm_follows_the_reference_from_its_weights(tmp_path, capsys):
+    """``examples_torch/train_lm.py`` (its tiny preset, bf16) for 3 steps
+    from the JAX init's weights against the reference's train step on the
+    same batches: the first loss within the dense family's train-step bar
+    (1e-4 relative, ``tests/test_torch_dense.py``), all three within its
+    bf16 bar (2e-2)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.data import SyntheticLM as JSyntheticLM
+    from repro.optim import AdamWConfig as JAdamWConfig
+    from repro.runtime import steps as jsteps
+    from repro_torch.models import params_from_jax
+
+    ref = _load(ROOT / "examples" / "train_lm.py")
+    port = _load(ROOT / "examples_torch" / "train_lm.py")
+    jcfg, tcfg = ref.PRESETS["tiny"], port.PRESETS["tiny"]
+    assert jcfg.name == tcfg.name and jcfg.n_layers == tcfg.n_layers
+    steps = 3
+    jopt = JAdamWConfig(lr=3e-3, warmup_steps=20, total_steps=steps)
+    jstate, _ = jsteps.init_train_state(jcfg, jopt, jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jstate.params)
+    params = params_from_jax(tree, tcfg, "cpu")
+    got = port.main(["--steps", str(steps), "--device", "cpu",
+                     "--ckpt-dir", str(tmp_path)], init_params=params)
+    step = jax.jit(jsteps.build_train_step(jcfg, jopt, n_micro=2))
+    ds = JSyntheticLM(jcfg.vocab, 64, 8, seed=0)
+    want = []
+    for i in range(steps):
+        batch = {k: jnp.asarray(v) for k, v in ds.batch_at(i).items()}
+        jstate, m = step(jstate, batch)
+        want.append(float(m["loss"]))
+    assert len(got) == steps
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=2e-2)
+    out = capsys.readouterr().out
+    assert "params=" in out and out.rstrip().endswith("~ln(vocab)")
