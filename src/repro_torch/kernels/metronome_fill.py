@@ -23,6 +23,7 @@ unit-capacity links never saturate.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -30,7 +31,9 @@ import torch
 from .. import _cuda_build
 from .ref import progressive_fill_ref
 
-# (max flows, opt-in shared-memory limit) by CUDA device index
+# (max flows, opt-in shared-memory limit) by CUDA device index; thread
+# sweeps reach this wrapper through the fluid engine's 'kernel' backend
+_LOCK = threading.Lock()
 _LIMITS: Dict[int, Tuple[int, int]] = {}
 
 
@@ -77,10 +80,11 @@ def metronome_fill(demands: torch.Tensor, routes: torch.Tensor,
     with torch.cuda.device(demands.device):
         lib = _cuda_build.load("metronome_fill", _bind)
         index = demands.device.index
-        if index not in _LIMITS:
-            _LIMITS[index] = (lib.metronome_fill_max_flows(),
-                              lib.metronome_fill_smem_limit())
-        max_f, limit = _LIMITS[index]
+        with _LOCK:
+            if index not in _LIMITS:
+                _LIMITS[index] = (lib.metronome_fill_max_flows(),
+                                  lib.metronome_fill_smem_limit())
+            max_f, limit = _LIMITS[index]
         if f > max_f:
             raise ValueError(f"metronome_fill: takes at most {max_f} flows, "
                              f"got F={f}")

@@ -26,6 +26,7 @@ exactly 100.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -34,7 +35,9 @@ from .. import _cuda_build
 from .ref import (metronome_score_multilink_batch_ref,
                   metronome_score_multilink_ref, metronome_score_ref)
 
-# largest slot count the kernel takes, by CUDA device index
+# largest slot count the kernel takes, by CUDA device index; thread sweeps
+# reach the wrappers through the planner's 'kernel' backend
+_LOCK = threading.Lock()
 _MAX_SLOTS: Dict[int, int] = {}
 
 
@@ -74,11 +77,12 @@ def _launch(name: str, base: torch.Tensor, bank_a: torch.Tensor,
     with torch.cuda.device(base.device):
         lib = _cuda_build.load("metronome_score", _bind)
         index = base.device.index
-        if index not in _MAX_SLOTS:
-            _MAX_SLOTS[index] = lib.metronome_score_max_slots()
-        if 0 <= _MAX_SLOTS[index] < s:
-            raise ValueError(f"{name}: supports S <= {_MAX_SLOTS[index]}, "
-                             f"got S={s}")
+        with _LOCK:
+            if index not in _MAX_SLOTS:
+                _MAX_SLOTS[index] = lib.metronome_score_max_slots()
+            max_slots = _MAX_SLOTS[index]
+        if 0 <= max_slots < s:
+            raise ValueError(f"{name}: supports S <= {max_slots}, got S={s}")
         rc = lib.metronome_score_launch(
             base.data_ptr(), bank_a.data_ptr(), bank_b.data_ptr(),
             caps.data_ptr(), out.data_ptr(), c, l, ra, rb, s,

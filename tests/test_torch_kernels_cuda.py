@@ -15,6 +15,9 @@ kernel is held at atol 1e-4, the reference's own for its kernels
 PyTorch does and adds ``B - cap`` to ``base + A``.  Where the plain score
 is NaN (a zero-capacity link with zero excess), the kernel's is NaN too.
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -249,3 +252,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     base, bank_a, bank_b, caps = _score_problem(1, 1, 1, 4, 4, 72, cuda)
     with pytest.raises(ValueError, match="float32"):
         metronome_score_multilink_batch(base.double(), bank_a, bank_b, caps)
+
+
+def test_wrappers_fill_their_device_caches_under_a_lock(cuda):
+    """``sweep(mode="thread")`` reaches the fill and score wrappers from
+    many threads at once; each wrapper's first call on a device fills its
+    module's per-device cache under the module's lock."""
+    fill_module = sys.modules[metronome_fill.__module__]
+    score_module = sys.modules[metronome_score_multilink_batch.__module__]
+    fill_args = _fill_problem(3, 4, 9, 5, cuda)
+    score_args = _score_problem(4, 2, 3, 24, 36, 72, cuda)
+    fill_want = ref.progressive_fill_ref(*fill_args)
+    score_want = ref.metronome_score_multilink_batch_ref(*score_args)
+    fill_module._LIMITS.clear()
+    score_module._MAX_SLOTS.clear()
+    errors = []
+
+    def work():
+        try:
+            for _ in range(10):
+                fill_got = metronome_fill(*fill_args)
+                score_got = metronome_score_multilink_batch(*score_args)
+                torch.cuda.synchronize()
+                assert torch.equal(fill_got, fill_want)
+                torch.testing.assert_close(score_got, score_want, atol=TOL,
+                                           rtol=0)
+        except Exception as e:  # read on the main thread below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    index = fill_args[0].device.index
+    assert list(fill_module._LIMITS) == [index]
+    assert list(score_module._MAX_SLOTS) == [index]
