@@ -103,8 +103,12 @@ JSON line with its numbers and seconds:
                 the main paths' flash and RG-LRU launches, bounds and the
                 library's time: ``torch.cdist`` for the score, and for
                 attention ``scaled_dot_product_attention``, which the bf16
-                flash kernel must beat at the serving shape; flash also at
-                the Llama-3-8B, Qwen1.5-MoE and Whisper main-path launches
+                flash kernel must beat at the serving shape and take no
+                more than 1.25x of, in device time, at the Llama-3-8B,
+                Qwen1.5-MoE and Whisper decoder main-path launches (head
+                dims 128 and 64); the summary line gives each main-path
+                flash case's ratio to the library and its bound's share
+                of its device time
 
 The phases run in this order but for serve_moe, which runs before
 train_dense, and dryrun, whose cells run beside train_dense and train_moe.
@@ -112,10 +116,18 @@ Launch counts are zeroed just before each path and read just after it.
 Every check that fails raises, so the script exits non-zero; it also exits
 non-zero without a CUDA device.  The last lines are the kernel summary, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+
+    python3 chip_smoke.py --compare-flash OTHER/flash_attention.cu
+
+runs none of the phases: it builds another ``flash_attention.cu`` (a parent
+commit's, say) beside this checkout's and prints, for each D=128 and D=64
+main-path shape, both kernels' device time a launch in the order other,
+this, this, other, the library's before and after, and the bound.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -203,6 +215,16 @@ LOGIT_TOL = 2e-2
 # window they are ~0.03), which the elementwise 2e-2 is too loose to see.
 FLASH_NORM_TOL = 5e-3
 
+# the bf16 flash kernel at D=128 and D=64 on the main paths: no slower than
+# this many times scaled_dot_product_attention on the same inputs, each in
+# device time under torch.profiler (the CUDA-event ms around a call also
+# holds 40-70 us of host work, which moves between runs)
+FLASH_FLOOR = 1.25
+FLASH_FLOOR_CASES = ("flash_serve_dense", "flash_train_dense",
+                     "flash_serve_sharded", "flash_serve_moe",
+                     "flash_train_moe", "flash_serve_encdec_decoder",
+                     "flash_train_small_decoder")
+
 # each redesigned kernel's design and the ptxas entries whose registers and
 # spills the summary reports
 REDESIGNED = {
@@ -218,10 +240,19 @@ REDESIGNED = {
                "over up to 4 thread groups, NaN-propagating max",
         ptxas_entries=("score_kernelILi72E", "score_kernelILi0E")),
     "flash_attention_fwd": dict(
-        design={"bfloat16": "wgmma+tma: 2 warpgroups, 2-stage TMA ring "
-                            "fed by thread 0",
+        design={"bfloat16 D=256": "wgmma+tma: 2 warpgroups, 64-key tiles, "
+                                  "2-stage TMA ring fed by thread 0",
+                "bfloat16 D<=128": "wgmma+tma: a producer warpgroup, "
+                                   "128-key tiles, 2 consumer warpgroups "
+                                   "each issuing tile i's S with tile "
+                                   "i-1's P.V and running tile i's "
+                                   "softmax under that P.V, taking turns "
+                                   "to issue; P through shared memory "
+                                   "(stmatrix) at D=128, in registers at "
+                                   "D=64",
                 "float32": "CUDA-core FMAs"},
-        ptxas_entries=("flash_fwd_bf16ILi256E", "flash_fwd_bf16ILi128E")),
+        ptxas_entries=("flash_fwd_bf16ILi256E", "flash_fwd_bf16_wsILi128E",
+                       "flash_fwd_bf16_wsILi64E")),
     "rg_lru_pallas": dict(
         design="one warp per 32 columns, 3-stage cp.async ring",
         ptxas_entries=("rg_lru_kernel",)),
@@ -682,38 +713,61 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, kernels: Sequence[str], reps: int = 200) -> dict:
+def device_us(fn, kernels: Optional[Sequence[str]],
+              reps: int = 200) -> dict:
     """Device-only time per launch of the kernels whose names hold one of
     ``kernels``, over ``reps`` calls of ``fn``: their CUDA time under
-    ``torch.profiler`` over their launches that the trace holds.  A trace
-    loses the first records of a burst of launches, more of them the
-    longer the process has run (PERF.md, PR 15), so the burst is long
-    and ``device_traced`` reports the share of the launches it holds.
-    Fails, naming the device events the trace does hold, where it holds
-    none of these kernels'."""
+    ``torch.profiler`` over their launches that the trace holds.  With
+    ``kernels`` None (a library call, whose kernels this script does not
+    name) it is every device event's time over the launches of the one
+    that took the most, so a time a call, and ``device_kernels`` names
+    the events.  A trace loses the first records of a burst of launches,
+    more of them the longer the process has run (PERF.md), so the
+    burst is long and ``device_traced`` reports the share of the calls
+    (of the launches, for named kernels) it holds; a trace that holds
+    none of them (a burst of a few-microsecond kernel late in the run can
+    lose all its records) is taken again with a burst four times as long,
+    twice at most, and ``device_attempts`` counts the traces taken.
+    Fails, naming the device events the last trace does hold, where none
+    holds these kernels'."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _sync()
-    ran = sum(w.launches for w in ALL_WRAPPERS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        _sync()
-    ran = sum(w.launches for w in ALL_WRAPPERS) - ran
-    total_us, count = 0.0, 0
-    seen: Dict[str, int] = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    for attempt in range(1, 4):
+        ran = sum(w.launches for w in ALL_WRAPPERS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            _sync()
+        ran = sum(w.launches for w in ALL_WRAPPERS) - ran
+        if kernels is None or ran == 0:  # a library's or a raw launch
+            ran = reps
+        total_us, count = 0.0, 0
+        seen: Dict[str, int] = {}
+        heaviest = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
             seen[ev.key[:60]] = ev.count
-            if any(k in ev.key for k in kernels):
+            if kernels is None:
+                total_us += ev.self_device_time_total
+                if ev.self_device_time_total > heaviest:
+                    heaviest, count = ev.self_device_time_total, ev.count
+            elif any(k in ev.key for k in kernels):
                 total_us += ev.self_device_time_total
                 count += ev.count
+        if total_us > 0.0 and count > 0:
+            break
+        reps *= 4
     check(total_us > 0.0 and count > 0,
           f"torch.profiler holds none of {ran} launches of {kernels}: the "
           f"trace's device events {seen}")
-    return dict(device_us_per_launch=total_us / count,
-                device_traced=count / ran)
+    out = dict(device_us_per_launch=total_us / count,
+               device_traced=count / ran, device_attempts=attempt)
+    if kernels is None:
+        out["device_kernels"] = seen
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1930,6 +1984,11 @@ def _flash_case(q, k, v, causal: bool, window: int,
     if main_path:
         device = device_us(lambda: flash_attention_fwd(
             q, k, v, causal=causal, window=window), FLASH_KERNELS)
+        lib_dev = device_us(lambda: _sdpa(q, k, v, causal, window), None)
+        device.update(library_device_us=lib_dev["device_us_per_launch"],
+                      library_device_traced=lib_dev["device_traced"],
+                      library_device_attempts=lib_dev["device_attempts"],
+                      library_device_kernels=lib_dev["device_kernels"])
     b, h, s, d = q.shape
     pairs = _unmasked_pairs(s, causal, window)
     n_ops = b * h * pairs * 4 * d  # q.k and p.v, a multiply and an add each
@@ -2099,6 +2158,13 @@ def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
     check(flash["ms"] < flash["library_ms"],
           f"flash kernel {flash['ms']} ms at the serving shape is not below "
           f"scaled_dot_product_attention's {flash['library_ms']} ms")
+    for name in FLASH_FLOOR_CASES:
+        case = cases[name]
+        check(case["device_us_per_launch"]
+              <= FLASH_FLOOR * case["library_device_us"],
+              f"{name}: flash kernel {case['device_us_per_launch']} device "
+              f"us a launch is over {FLASH_FLOOR}x scaled_dot_product_"
+              f"attention's {case['library_device_us']} device us a call")
     return cases
 
 
@@ -2188,6 +2254,18 @@ def _redesign(name: str, ptxas: Dict[str, Dict[str, dict]]) -> dict:
     return dict(design=info["design"], ptxas=entries or None)
 
 
+def _flash_ratios(case: dict) -> dict:
+    """A flash case's device time over the library call's (what the floor
+    holds), the same over CUDA-event ms around each call (the wrapper's
+    host work included; for information), and its bound's share of the
+    kernel's device time."""
+    return dict(device_vs_library=case["device_us_per_launch"]
+                / case["library_device_us"],
+                vs_library=case["ms"] / case["library_ms"],
+                bound_share=case["bound_ms"] * 1e3
+                / case["device_us_per_launch"])
+
+
 def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
                    ptxas: Dict[str, Dict[str, dict]]) -> dict:
     fill = cases["fill_trace_corpus"]
@@ -2242,11 +2320,14 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
              bound_by=flash["bound_by"], library_ms=flash["library_ms"],
              library="torch.nn.functional.scaled_dot_product_attention",
              shape=flash["shape"],
-             main_path_cases={n: {k: cases[n][k] for k in (
-                 "shape", "window", "ms", "device_us_per_launch",
-                 "device_traced", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err", "normwise_err")}
-                 for n in MAIN_PATH_FLASH},
+             main_path_cases={n: dict(
+                 {k: cases[n][k] for k in (
+                     "shape", "window", "ms", "device_us_per_launch",
+                     "device_traced", "device_attempts", "plain_ms",
+                     "bound_ms", "bound_by", "library_ms",
+                     "library_device_us", "library_device_attempts",
+                     "max_abs_err", "normwise_err")},
+                 **_flash_ratios(cases[n])) for n in MAIN_PATH_FLASH},
              device_us_per_launch={n: v for n, v in device_us.items()
                                    if n.startswith("flash_")},
              **_redesign("flash_attention_fwd", ptxas)),
@@ -2284,6 +2365,79 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
     return {"kernels": kernels}
 
 
+# the D=128 and D=64 main-path launches: (B, H, Hkv, S, D, causal)
+FLASH_COMPARE_SHAPES = {
+    "serve_dense": (4, 32, 8, 4064, 128, True),
+    "train_dense": (1, 32, 8, 4096, 128, True),
+    "serve_sharded": (4, 32, 8, 4088, 128, True),
+    "serve_moe": (4, 16, 16, 4064, 128, True),
+    "train_moe": (1, 16, 16, 4096, 128, True),
+    "serve_encdec_encoder": (4, 12, 12, 1016, 64, False),
+    "serve_encdec_decoder": (4, 12, 12, 4064, 64, True),
+    "train_small_encoder": (1, 12, 12, 1024, 64, False),
+    "train_small_decoder": (1, 12, 12, 4096, 64, True),
+}
+
+
+def compare_flash(other_source: str) -> dict:
+    """Another ``flash_attention.cu`` (a parent commit's) against this
+    checkout's, on one card: the other built with the same flags under
+    another name, each called at every D=128 and D=64 main-path shape on
+    one seed's inputs, their device time a launch taken in the order
+    other, this, this, other, with the library's call's before and after;
+    each output's normwise error against ``attention_ref``."""
+    from repro_torch.kernels import flash_attention as fa
+    out_dir = ROOT / "build" / "flash_compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    other_so = out_dir / "flash_attention_other.so"
+    proc = subprocess.run(
+        [_cuda_build.nvcc(), *_cuda_build._flags("flash_attention"),
+         "-Xptxas", "-v", "-o", str(other_so), other_source],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc {other_source}: {proc.stdout}"
+          f"{proc.stderr}")
+    libs = {"other": fa._bind(ctypes.CDLL(str(other_so))),
+            "this": _cuda_build.load("flash_attention", fa._bind)}
+
+    def call(lib, q, k, v, causal):
+        b, h, s, d = q.shape
+        out = torch.empty_like(q)
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], s, d, 1, int(causal), 0, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"flash launch: {lib.flash_attention_error(rc)}")
+        return out
+
+    rows = {}
+    for tag, (b, h, hkv, s, d, causal) in FLASH_COMPARE_SHAPES.items():
+        q, k, v = _qkv(1, b, h, hkv, s, d, torch.bfloat16)
+        want = ref.attention_ref(q, k, v, causal=causal).float()
+        row = {"shape": [b, h, hkv, s, d], "causal": causal,
+               "other_us": [], "this_us": [], "library_us": []}
+        for name in libs:
+            got = call(libs[name], q, k, v, causal).float()
+            row[f"{name}_normwise_err"] = float(
+                torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+        del want
+        lib = device_us(lambda: _sdpa(q, k, v, causal, 0), None)
+        row["library_us"].append(lib["device_us_per_launch"])
+        row["library_kernels"] = lib["device_kernels"]
+        for name in ("other", "this", "this", "other"):
+            row[f"{name}_us"].append(device_us(
+                lambda: call(libs[name], q, k, v, causal),
+                FLASH_KERNELS)["device_us_per_launch"])
+        row["library_us"].append(device_us(
+            lambda: _sdpa(q, k, v, causal, 0), None)["device_us_per_launch"])
+        n_ops = b * h * _unmasked_pairs(s, causal, 0) * 4 * d
+        row["bound_us"] = n_ops / PEAK_BF16_OPS_PER_S * 1e6
+        rows[tag] = row
+        emit("compare_flash", case=tag, **row)
+        del q, k, v
+    return rows
+
+
 EXPERIMENT_JOBS = 1000
 MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_dense", "flash_serve_moe", "flash_train_moe",
@@ -2293,7 +2447,7 @@ MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_sharded_griffin", "flash_elastic")
 
 
-def main() -> int:
+def main(argv: Sequence[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
@@ -2301,6 +2455,14 @@ def main() -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--compare-flash"] and len(argv) == 2:
+        info = phase_device()
+        _cuda_build.build_all()
+        compare_flash(argv[1])
+        print(info["nvidia_smi"], flush=True)
+        return 0
+    check(not argv, f"arguments {list(argv)}: none, or --compare-flash "
+          "PATH_OF_ANOTHER_flash_attention.cu")
 
     t_start = time.perf_counter()
     info = phase_device()
@@ -2347,4 +2509,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,41 +2,57 @@
 // window or bidirectional, GQA, bfloat16 or float32 in and out.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (_flash_fwd_kernel, launched by flash_attention_fwd).  The port's griffin
-// prefill calls it once per local-attention layer on the prompt's own keys.
+// (_flash_fwd_kernel, launched by flash_attention_fwd).  The port calls it
+// once per self-attention layer of a fresh prompt: the dense and MoE
+// prefill and training forward at D=128, Whisper's encoder and decoder at
+// D=64, the griffin prefill's local-attention layers at D=256.
 //
 // Bound on the H100: operations.  Only the unmasked (q, k) pairs need work,
-// 4*D operations each (q.k and p.v); at the serving shape (B=4, H=10, Hkv=1,
-// S=4064, D=256, window 2048) that is ~6.2 M pairs per head, ~0.26 ms at
-// the 989 TFLOP/s bf16 tensor-core peak.  The bytes (q, k, v read once, o
-// written once) are a few tens of MB, far below it.
+// 4*D operations each (q.k and p.v): a Llama-3-8B prefill launch (B=4,
+// H=32, S=4064, D=128, causal) is 0.55 ms at the 989 TFLOP/s bf16
+// tensor-core peak, a griffin one (B=4, H=10, S=4064, D=256, window 2048)
+// 0.26 ms.  The bytes (q, k, v read once, o written once) are far below.
 //
-// bfloat16 (the serving path): tensor cores and TMA.  One block of 256
-// threads, two warpgroups, per (batch*head, 128-row q tile), the tiles with
-// the most keys launched first.  Thread 0 also produces: it loads the q
-// tile once and streams 64-row k and v tiles by TMA through a 2-stage ring
-// in shared memory, each stage guarded by a full and an empty mbarrier,
-// refilling a stage as soon as both warpgroups have released it.  Each
-// warpgroup owns 64 q rows: S = Q.K^T by wgmma m64n64k16 with both operands
-// in shared memory (K-major, as stored), the online softmax on the
-// accumulator registers, P cast to bf16 in registers and fed as wgmma's
-// register A operand for O += P.V, V read from shared memory with the
-// transpose bit (its rows are the contraction).  O stays in registers
-// (64 x D f32 per warpgroup, D/2 a thread).  Tiles are stored with 128-byte
-// swizzle: a 64-value (128-byte) box per TMA, D/64 boxes per row, and the
-// wgmma descriptors walk the same layout.  The tensor maps are 3-D (D, S,
-// heads), so rows past S read as zeros and never as the next head's rows;
-// they are masked all the same.  Tiles wholly in the future or outside the
-// window are never loaded, tiles wholly masked for one warpgroup are
-// skipped by it, and only partial tiles pay for the mask.  Shared memory at
-// D=256: q 64 KB + 2 x (k 32 KB + v 32 KB) = 192 KB, one block per SM.
-// Why no separate producer warp: a third warpgroup caps every thread at
-// 168 registers (the register file is split over the SM's 4 sub-partitions),
-// and even with setmaxnreg handing the producer's registers to the
-// consumers, ptxas spilled the D=256 consumer and serialised its wgmmas,
-// and that design ran slower than this one at the serving shape (PERF.md
-// has the times and register counts).  The tensor-map encoder comes
-// from cudaGetDriverEntryPoint, so the library links nothing but the CUDA
+// Three designs, picked by dtype and head dim in flash_attention_launch.
+// Both bfloat16 designs run on the tensor cores: q, k and v tiles come into
+// shared memory by TMA with 128-byte swizzle (a 64-value, 128-byte box per
+// load, D/64 boxes a row; the 3-D tensor maps (D, S, heads) read rows past
+// S as zeros, never as the next head's rows), S = Q.K^T and O += P.V run
+// as wgmma, the online softmax on the accumulator registers, O stays in
+// registers (64 q rows x D a warpgroup, D/2 f32 a thread).  One block per
+// (batch*head, 128-row q tile), the tiles with the most keys launched
+// first; k tiles wholly in the future or outside the window are never
+// loaded, and only tiles that cut a mask or S pay for the mask.
+//
+// bfloat16, D = 64 and 128 (flash_fwd_bf16_ws): 384 threads.  One thread
+// of a producer warpgroup loads the q tile, then streams 128-key k and v
+// tiles through a ring (2 stages at D=128, 4 at D=64) with a full and an
+// empty mbarrier per k and per v stage, so a k stage is refilled once S is
+// done with it.  Two consumer warpgroups, 64 q rows each, issue tile i's S
+// (m64n128k16, both operands in shared memory) with tile i-1's P.V behind
+// it, and run tile i's softmax while that P.V runs (wgmma.wait_group 1,
+// then 0); named barriers make them take turns to issue, so one's exp2
+// work runs under the other's wgmmas.  Registers bound this design: 12
+// warps put 3 on each of the SM's 4 sub-partitions, and ptxas holds every
+// thread to 168 registers (setmaxnreg 24 / 240 moved none to the
+// consumers' code: the same 168, the same spills).  S and O take 64 each
+// at D=128, so P goes through shared memory: stmatrix writes it into a
+// K-major swizzled 64 x 128 tile per consumer, and P.V's wgmma reads it
+// there (kept in registers beside S and O, P made ptxas spill and
+// serialise the wgmmas).  At D=64 O takes 32, P stays in registers as
+// wgmma's A operand, and that is faster there.  Shared memory: q 32 KB +
+// 2 x (k 32 + v 32) + P 2 x 16 = 192 KB at D=128; q 16 + 4 x (16 + 16) =
+// 144 KB at D=64.  ptxas keeps both within 168 registers with no spills
+// (PERF.md has the counts, the times and the measurements behind each
+// choice).
+//
+// bfloat16, D = 256 (flash_fwd_bf16, the griffin path): 256 threads, two
+// warpgroups, 64-key tiles in a 2-stage ring that thread 0 refills, each
+// tile's S, softmax and P.V in turn.  O takes 128 registers a thread here,
+// so a third warpgroup's 168-register cap spilled it, and that design ran
+// slower than this one at the serving shape.  Shared memory: q 64 KB + 2 x
+// (k 32 KB + v 32 KB) = 192 KB.  The tensor-map encoder comes from
+// cudaGetDriverEntryPoint, so the library links nothing but the CUDA
 // runtime.
 //
 // float32: the first port's body on the CUDA cores (TF32 tensor cores
@@ -46,12 +62,12 @@
 //
 // Numerics follow the Pallas body: scores scaled after the dot product,
 // masked scores -1e30, running max from -1e30, final division by
-// max(l, 1e-30).  The bf16 path keeps the row sum l from float32 p before
-// it casts p to bf16 for P.V (the one intended difference from an all-f32
+// max(l, 1e-30).  The bf16 paths keep the row sum l from float32 p before
+// they cast p to bf16 for P.V (the one intended difference from an all-f32
 // product; the 2e-2 bf16 tolerance and the 5e-3 normwise check cover it),
-// and takes exp2 of scores prescaled by log2(e) with the hardware's
+// and take exp2 of scores prescaled by log2(e) with the hardware's
 // ex2.approx: the accurate exp2f costs a quarter of the kernel's time at
-// the serving shape for no change in the bf16 result.
+// the griffin serving shape for no change in the bf16 result.
 #include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -342,15 +358,23 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from moving accesses of wgmma's registers across the
 // asynchronous instructions
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define WG_ACC32                                                            \
@@ -414,6 +438,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
         "r"(1));
 }
 
+#define WG_ACC64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define WG_OUT64(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128 f32) (+)= A (64 x 16, shared, K-major) . B, B 128 x 16 in
+// shared memory, K-major (TB = 0), or 16 x 128 N-major (TB = 1: its two
+// 64-column slabs lie the descriptor's leading byte offset apart)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint32_t off_a, uint64_t db,
+                                              uint32_t off_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 wlo, whi;\n"
+      ".reg .b64 wda, wdb;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      WG_ADD_OFFSET("wda", "%64", "%65")
+      WG_ADD_OFFSET("wdb", "%66", "%67")
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_ACC64
+      ", wda, wdb, p, 1, 1, 0, %69;\n"
+      "}\n"
+      : WG_OUT64(d)
+      : "l"(da), "r"(off_a), "l"(db), "r"(off_b), "r"(accumulate),
+        "n"(TB));
+}
+
 // one k/v tile (keys t*kTileK ..) into ring stage s, both completing on
 // the stage's full barrier
 template <int D>
@@ -453,6 +521,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
                    const __grid_constant__ CUtensorMap v_map,
                    __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
                    int causal, int window, float scale_log2) {
+  static_assert(D == 256, "D <= 128 take flash_fwd_bf16_ws");
   constexpr int NS = D / kSlab;  // 128-byte slabs per row
   constexpr int KQ = D / 16;     // k16 steps of q.k
   using L = Layout<D>;
@@ -541,7 +610,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
                  kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       const bool whole = k0 + kTileK <= S &&
@@ -617,7 +686,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
           wgmma_rs(acc[c], pa + 4 * kk, dv,
                    (c * kTileK * kRow + kk * 16 * kRow) >> 4);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
 #pragma unroll
       for (int c = 0; c < NS; ++c) fence_regs(acc[c]);
     }
@@ -650,6 +719,410 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         *reinterpret_cast<uint32_t*>(o1 + col) =
             pack_bf16(acc[c][4 * j + 2] * inv1, acc[c][4 * j + 3] * inv1);
     }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 at D = 64 and 128: a producer warpgroup, 128-key tiles, and each
+// tile's softmax run while the tensor cores work
+// ---------------------------------------------------------------------------
+
+constexpr int kWsTileK = 128;    // k/v rows per ring stage
+constexpr int kWsThreads = 384;  // a producer and two consumer warpgroups
+// named barriers 1 and 2 (0 is __syncthreads'): consumer g waits on 1 + g
+// for its turn to issue wgmmas and hands the turn on at the other's; 3 and
+// 4: consumer g's own four warps, once its P tile is written
+constexpr int kTurnBar = 1;
+constexpr int kPBar = 3;
+
+template <int D>
+struct WsLayout {
+  // P through shared memory at D = 128, in registers at D = 64 (the
+  // kernel's note says why)
+  static constexpr bool kPSmem = D == 128;
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kQBytes = kTileQ * D * 2;
+  static constexpr int kKVBytes = kWsTileK * D * 2;  // one k (or v) stage
+  static constexpr int kPBytes = kPSmem ? 64 * kWsTileK * 2 : 0;  // a P
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kP = kV + kStages * kKVBytes;
+  // q, then full k[], full v[], empty k[], empty v[]
+  static constexpr int kBar = kP + 2 * kPBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align to 1024
+};
+
+// the two consumer warpgroups' named barriers (256 threads: 128 arrive,
+// 128 wait)
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// four 8x8 bf16 blocks, in mma's fragment layout, into shared memory; lane
+// l gives the address of row l % 8 of block l / 8
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// make this thread's shared-memory writes visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one k or v tile (keys t*kWsTileK ..) into a ring stage, completing on its
+// full barrier
+template <int D>
+__device__ __forceinline__ void load_ws_tile(const CUtensorMap* map,
+                                             uint32_t dst, uint32_t full,
+                                             int t, int kvh) {
+  mbar_expect_tx(full, WsLayout<D>::kKVBytes);
+  for (int c = 0; c < D / kSlab; ++c)
+    tma_load_3d(dst + c * kWsTileK * kRow, map, full, c * kSlab,
+                t * kWsTileK, kvh);
+}
+
+// S (64 x 128 f32) = Q_g (64 x D) . K_t^T, one m64n128k16 a k16 step
+template <int D>
+__device__ __forceinline__ void ws_qk(float (&sc)[64], uint64_t dq,
+                                      uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // slab kk / 4, 32-byte step kk % 4
+    wgmma_ss_n128<0>(sc, dq, ((kk / 4) * kTileQ * kRow + (kk % 4) * 32) >> 4,
+                  dk, ((kk / 4) * kWsTileK * kRow + (kk % 4) * 32) >> 4,
+                  kk > 0);
+}
+
+// O (64 x D f32) += P (64 x 128 bf16) . V_t (128 x D), one m64nDk16 a
+// step of 16 keys, P read from shared memory (descriptor dp) at D = 128 and
+// from registers (pa, wgmma's A fragments) at D = 64
+template <int D>
+__device__ __forceinline__ void ws_pv(float (&acc)[D / 2],
+                                      const uint32_t (&pa)[32], uint64_t dp,
+                                      uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < kWsTileK / 16; ++kk) {
+    const uint32_t off_v = (kk * 16 * kRow) >> 4;
+    if constexpr (WsLayout<D>::kPSmem)
+      wgmma_ss_n128<1>(acc, dp, ((kk / 4) * 64 * kRow + (kk % 4) * 32) >> 4,
+                       dv, off_v, 1);
+    else
+      wgmma_rs(acc, pa + 4 * kk, dv, off_v);
+  }
+}
+
+// One tile's online softmax for this thread's rows r0 and r0 + 8: raw
+// scores in, probabilities out in place, the running max and this thread's
+// share of the row sums updated, and the factors by which O's rows must be
+// rescaled before this tile's P.V returned in corr0, corr1.  A tile that
+// cuts no mask and no S (kMask false) takes the max of the raw scores
+// (scaling by a positive factor keeps the order, and rounds the max as it
+// rounds each score) and one fused multiply-add a score; a masked tile
+// scales first and sets masked scores to -1e30.  The element (j, e) is key
+// k0 + cq + 8j + (e & 1); it is visible when 8j + (e & 1) lies in [lo, hi)
+// of its row (bounds shifted by k0 + cq).  Maxima and sums run in two
+// chains a row, to halve their dependent latency.
+template <bool kMask>
+__device__ __forceinline__ void ws_softmax(float (&sc)[64], int lo0,
+                                           int hi0, int lo1, int hi1,
+                                           float scale_log2, float& m0,
+                                           float& m1, float& l0, float& l1,
+                                           float& corr0, float& corr1) {
+  float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};  // (row, chain)
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e];
+      if (kMask) {
+        const int c = 8 * j + (e & 1);
+        const bool ok =
+            e < 2 ? (c >= lo0 && c < hi0) : (c >= lo1 && c < hi1);
+        x = ok ? x * scale_log2 : kNegInf;
+        sc[4 * j + e] = x;
+      }
+      float& m = mx[2 * (e >> 1) + (j & 1)];
+      m = fmaxf(m, x);
+    }
+  float mx0 = fmaxf(mx[0], mx[1]), mx1 = fmaxf(mx[2], mx[3]);
+  // the 4 threads of a quad hold one row's 128 columns
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  if (!kMask) {
+    mx0 *= scale_log2;
+    mx1 *= scale_log2;
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  corr0 = fast_exp2(m0 - mn0);
+  corr1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ps[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float mn = e < 2 ? mn0 : mn1;
+      const float x = sc[4 * j + e];
+      const float p = fast_exp2(kMask ? x - mn : fmaf(x, scale_log2, -mn));
+      sc[4 * j + e] = p;
+      ps[2 * (e >> 1) + (j & 1)] += p;
+    }
+  l0 = l0 * corr0 + (ps[0] + ps[1]);  // the quad sums at the end
+  l1 = l1 * corr1 + (ps[2] + ps[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_bf16_ws(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
+                      int causal, int window, float scale_log2) {
+  static_assert(D == 64 || D == 128, "the D <= 128 design");
+  using L = WsLayout<D>;
+  constexpr int ST = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  const uint32_t sP = base + L::kP;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t full_k = bar_q + 8;  // + 8 * stage, and so on
+  const uint32_t full_v = full_k + 8 * ST;
+  const uint32_t empty_k = full_v + 8 * ST;
+  const uint32_t empty_v = empty_k + 8 * ST;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileQ;  // longest first
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+
+  // k tiles that hold at least one key some row of this block may see;
+  // both consumers walk all of them (a tile wholly masked for one of them,
+  // at a window's edge, reads as -1e30 scores and is wiped by the next
+  // tile's rescale: every row sees its own key)
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(q0 + kTileQ, S) : S;
+  const int t_lo = k_lo / kWsTileK;
+  const int n = (k_hi + kWsTileK - 1) / kWsTileK - t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 2 * 128);
+      mbar_init(empty_v + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / 128;  // warpgroup 0 produces
+  if (role == 0) {
+    // producer: one thread loads the q tile, then each k and v tile as
+    // soon as both consumers have released its stage
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int c = 0; c < D / kSlab; ++c)
+        tma_load_3d(sQ + c * kTileQ * kRow, &q_map, bar_q, c * kSlab, q0,
+                    bh);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST;
+        // parity of the stage's release of tile i - ST
+        const uint32_t freed = (i / ST + 1) & 1;
+        if (i >= ST) mbar_wait(empty_k + 8 * s, freed);
+        load_ws_tile<D>(&k_map, sK + s * L::kKVBytes, full_k + 8 * s,
+                        t_lo + i, kvh);
+        if (i >= ST) mbar_wait(empty_v + 8 * s, freed);
+        load_ws_tile<D>(&v_map, sV + s * L::kKVBytes, full_v + 8 * s,
+                        t_lo + i, kvh);
+      }
+    }
+  } else {
+    // consumers: warpgroup g owns q rows 64g .. 64g+63 of the tile.  Tile
+    // i's S = Q.K^T is issued with tile i-1's O += P.V behind it, and tile
+    // i's softmax runs while P.V does; the two warpgroups take turns to
+    // issue, so one's softmax runs while the other's wgmmas do
+    const int g = role - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    // accumulator layout: this thread holds rows r0 and r0 + 8, and in
+    // every 8-column chunk j the columns 8j + cq and 8j + cq + 1
+    const int r0 = q0 + 64 * g + 16 * (tid / 32) + lane / 4;
+    const int cq = 2 * (lane % 4);
+    const int g_first = q0 + 64 * g;
+    const int g_last = min(g_first + 63, S - 1);
+    // keys [key_lo, key_hi) of rows r0 and r0 + 8, less this thread's cq
+    const int key_lo0 = (window > 0 ? r0 - window + 1 : -(1 << 30)) - cq;
+    const int key_lo1 = (window > 0 ? r0 + 9 - window : -(1 << 30)) - cq;
+    const int key_hi0 = (causal ? min(r0 + 1, S) : S) - cq;
+    const int key_hi1 = (causal ? min(r0 + 9, S) : S) - cq;
+    const int my_turn = kTurnBar + g, next_turn = kTurnBar + 1 - g;
+    const uint64_t dq = sw128_desc(sQ + g * 64 * kRow, 16, 8 * kRow);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    float sc[64];
+    uint32_t pa[32];  // P's wgmma A fragments, at D = 64
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    float corr0 = 1.f, corr1 = 1.f;
+
+    // tile i's softmax; only tiles that cut a mask or S pay for the mask
+    auto softmax = [&](int i) {
+      const int k0 = (t_lo + i) * kWsTileK;
+      const bool whole = k0 + kWsTileK <= S &&
+                         (!causal || k0 + kWsTileK - 1 <= g_first) &&
+                         (window <= 0 || g_last - k0 < window);
+      // one branch a tile: the mask's tests stay out of whole tiles
+      if (whole)
+        ws_softmax<false>(sc, 0, 0, 0, 0, scale_log2, m0, m1, l0, l1, corr0,
+                          corr1);
+      else
+        ws_softmax<true>(sc, key_lo0 - k0, key_hi0 - k0, key_lo1 - k0,
+                         key_hi1 - k0, scale_log2, m0, m1, l0, l1, corr0,
+                         corr1);
+    };
+    // P in bf16 for the next P.V.  In k16 slice kk, chunks 2kk and 2kk+1
+    // of S's accumulator are wgmma's register A fragment: four 8x8 blocks
+    // in mma's fragment layout (rows 0-7 and 8-15 of this warp's 16, keys
+    // 16kk.. and 16kk+8..).  At D = 128 stmatrix stores them into this
+    // warpgroup's P tile, K-major in the 128-byte swizzle wgmma reads
+    // (16-byte chunk c of row r at c ^ (r % 8); lane l addresses row l % 8
+    // of block l / 8), read once all four warps have written it.
+    const int blk = lane / 8;
+    const uint32_t p_row = sP + g * L::kPBytes +
+                           (16 * (tid / 32) + 8 * (blk & 1) + lane % 8) * kRow;
+    auto store_p = [&]() {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) pa[r] = pack_bf16(sc[2 * r], sc[2 * r + 1]);
+      if constexpr (L::kPSmem) {
+#pragma unroll
+        for (int kk = 0; kk < kWsTileK / 16; ++kk) {
+          const int c = (kk % 4) * 2 + (blk >> 1);
+          stmatrix_x4(p_row + (kk / 4) * 64 * kRow + ((c ^ (lane % 8)) << 4),
+                      pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                      pa[4 * kk + 3]);
+        }
+        fence_proxy_async();
+        warpgroup_sync(kPBar + g);
+      }
+    };
+    const uint64_t dp = sw128_desc(sP + g * L::kPBytes, 16, 8 * kRow);
+    // P's registers are wgmma operands only at D = 64
+    auto fence_p = [&]() {
+      if constexpr (!L::kPSmem) fence_regs(pa);
+    };
+    // O's rows at the new max: skipped by a warp whose rows' max held
+    auto rescale = [&]() {
+      if (!__any_sync(0xffffffffu, corr0 != 1.f || corr1 != 1.f)) return;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 0] *= corr0;
+        acc[4 * j + 1] *= corr0;
+        acc[4 * j + 2] *= corr1;
+        acc[4 * j + 3] *= corr1;
+      }
+    };
+    auto k_desc = [&](int s) {
+      return sw128_desc(sK + s * L::kKVBytes, 16, 8 * kRow);
+    };
+    auto v_desc = [&](int s) {
+      return sw128_desc(sV + s * L::kKVBytes, kWsTileK * kRow, 8 * kRow);
+    };
+
+    if (g == 1) turn_pass(kTurnBar);  // consumer 0 issues first
+    mbar_wait(bar_q, 0);
+
+    // tile 0: S alone
+    mbar_wait(full_k, 0);
+    turn_wait(my_turn);
+    wgmma_fence();
+    ws_qk<D>(sc, dq, k_desc(0));
+    wgmma_commit();
+    turn_pass(next_turn);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(empty_k);
+    softmax(0);
+    store_p();
+
+    for (int i = 1; i < n; ++i) {
+      const int s = i % ST, sp = (i - 1) % ST;
+      mbar_wait(full_k + 8 * s, (i / ST) & 1);
+      turn_wait(my_turn);
+      wgmma_fence();
+      ws_qk<D>(sc, dq, k_desc(s));
+      wgmma_commit();
+      fence_regs(acc);  // rescale after the issue, under S's wgmmas
+      rescale();
+      mbar_wait(full_v + 8 * sp, ((i - 1) / ST) & 1);
+      fence_p();
+      wgmma_fence();
+      ws_pv<D>(acc, pa, dp, v_desc(sp));
+      wgmma_commit();
+      turn_pass(next_turn);
+      wgmma_wait<1>();  // S of tile i; P.V of tile i-1 runs on
+      fence_regs(sc);
+      mbar_arrive(empty_k + 8 * s);
+      softmax(i);
+      wgmma_wait<0>();  // P.V of tile i-1 is done with P
+      fence_regs(acc);
+      fence_p();
+      mbar_arrive(empty_v + 8 * sp);
+      store_p();
+    }
+
+    // the last tile's P.V
+    const int sl = (n - 1) % ST;
+    rescale();
+    mbar_wait(full_v + 8 * sl, ((n - 1) / ST) & 1);
+    turn_wait(my_turn);
+    fence_p();
+    wgmma_fence();
+    ws_pv<D>(acc, pa, dp, v_desc(sl));
+    wgmma_commit();
+    turn_pass(next_turn);
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* o0 = o + (static_cast<size_t>(bh) * S + r0) * D + cq;
+    __nv_bfloat16* o1 = o0 + 8 * static_cast<size_t>(D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r0 < S)
+        *reinterpret_cast<uint32_t*>(o0 + 8 * j) =
+            pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (r0 + 8 < S)
+        *reinterpret_cast<uint32_t*>(o1 + 8 * j) =
+            pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -693,6 +1166,15 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// D = 64 and 128 take flash_fwd_bf16_ws, D = 256 flash_fwd_bf16
+template <int D>
+constexpr auto bf16_kernel() {
+  if constexpr (D <= 128)
+    return flash_fwd_bf16_ws<D>;
+  else
+    return flash_fwd_bf16<D>;
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int Hkv, int S, int causal, int window, float scale,
@@ -702,17 +1184,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return cudaErrorMisalignedAddress;  // TMA reads from 16-byte bases
+  constexpr bool ws = D <= 128;
+  constexpr int tile_k = ws ? kWsTileK : kTileK;
+  constexpr int smem = ws ? WsLayout<D>::kAlloc : Layout<D>::kAlloc;
+  constexpr int threads = ws ? kWsThreads : kThreadsBf16;
   CUtensorMap qm, km, vm;
   if (!encode_map(encode, &qm, q, D, S, B * H, kTileQ) ||
-      !encode_map(encode, &km, k, D, S, B * Hkv, kTileK) ||
-      !encode_map(encode, &vm, v, D, S, B * Hkv, kTileK))
+      !encode_map(encode, &km, k, D, S, B * Hkv, tile_k) ||
+      !encode_map(encode, &vm, v, D, S, B * Hkv, tile_k))
     return cudaErrorInvalidValue;
-  const int smem = Layout<D>::kAlloc;
+  const auto kernel = bf16_kernel<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTileQ - 1) / kTileQ, B * H);
-  flash_fwd_bf16<D><<<grid, kThreadsBf16, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hkv, S, causal, window,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());

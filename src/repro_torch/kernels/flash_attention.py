@@ -10,16 +10,24 @@ package computes the same function with ``layers.chunked_attention`` in
 XLA.
 
 What bounds it on the H100 is operations: 4*D per unmasked (q, k) pair,
-about 0.26 ms at the 989 TFLOP/s bf16 tensor-core peak for one serving
-launch (B=4, H=10, S=4064, D=256, window 2048).  The source
-(``csrc/flash_attention.cu``) holds two designs, one per dtype.  bfloat16,
-the serving path, runs on the tensor cores: one block of two warpgroups
-per (batch*head, 128-row q tile), 64-row k and v tiles streamed by TMA
-through a 2-stage shared-memory ring, ``wgmma`` for Q.K^T and for P.V with
-P in registers, online softmax and O in registers.  float32 keeps the
-CUDA-core body (TF32 would break its 2e-5 tolerance).  Tiles wholly masked
-are never loaded; a ragged last tile reads zeros and is masked in the
-kernel.
+about 0.26 ms at the 989 TFLOP/s bf16 tensor-core peak for one griffin
+serving launch (B=4, H=10, S=4064, D=256, window 2048) and 0.55 ms for a
+Llama-3-8B prefill launch (B=4, H=32, S=4064, D=128, causal).  The source
+(``csrc/flash_attention.cu``) holds three designs, picked by dtype and
+head dim.  bfloat16 runs on the tensor cores (``wgmma``; q, k and v tiles
+brought into shared memory by TMA; online softmax and O in registers; 128
+q rows a block, the longest q tiles first).  At D = 64 and 128 a producer
+warpgroup streams 128-key k and v tiles through a ring of shared-memory
+stages, and each of two consumer warpgroups issues a tile's Q.K^T
+together with the previous tile's P.V and runs the tile's softmax while
+that P.V runs; named barriers make the two take turns to issue.  With
+12 warps a thread may hold 168 registers, so at D = 128 P goes through
+shared memory; at D = 64 it stays in registers.  D = 256 keeps two
+warpgroups and 64-key tiles fed by one of their threads: its O
+accumulator leaves no registers for a third warpgroup.
+float32 keeps the CUDA-core body (TF32 would break its 2e-5 tolerance).
+Tiles wholly masked are never loaded; a ragged last tile reads zeros and
+is masked in the kernel.
 """
 from __future__ import annotations
 

@@ -71,6 +71,30 @@ def _qkv(seed, b, h, hkv, s, d, dtype, device):
     (1, 2, 1, 200, 64, torch.bfloat16, False, 50),
     (1, 4, 2, 333, 256, torch.bfloat16, False, 100),
     (1, 2, 2, 256, 128, torch.bfloat16, False, 0),
+    # the D <= 128 design's edges: GQA 4:1 and 1:1 at the serving lengths,
+    # S around its 128-key tiles, windows of 1 and of one tile, each
+    # consumer warpgroup's 64 rows alone masked out of a tile (window 64:
+    # rows 192-255 see no key of tile 0, rows 128-191 do), bidirectional
+    # with and without a window, and Whisper's D = 64 shapes
+    (1, 8, 2, 4064, 128, torch.bfloat16, True, 0),
+    (1, 8, 2, 4088, 128, torch.bfloat16, True, 0),
+    (1, 4, 4, 4064, 128, torch.bfloat16, True, 0),
+    (1, 4, 4, 4088, 128, torch.bfloat16, True, 0),
+    (1, 4, 2, 127, 128, torch.bfloat16, True, 0),
+    (1, 4, 2, 128, 128, torch.bfloat16, True, 0),
+    (1, 4, 2, 129, 128, torch.bfloat16, True, 0),
+    (1, 4, 2, 255, 128, torch.bfloat16, True, 0),
+    (1, 4, 2, 129, 64, torch.bfloat16, True, 0),
+    (1, 2, 1, 600, 128, torch.bfloat16, True, 1),
+    (1, 2, 1, 600, 128, torch.bfloat16, True, 127),
+    (1, 2, 1, 600, 128, torch.bfloat16, True, 128),
+    (1, 2, 1, 256, 128, torch.bfloat16, True, 64),
+    (1, 2, 1, 384, 64, torch.bfloat16, True, 64),
+    (1, 4, 2, 300, 128, torch.bfloat16, False, 0),
+    (1, 4, 2, 300, 128, torch.bfloat16, False, 130),
+    (1, 4, 2, 300, 64, torch.bfloat16, False, 130),
+    (1, 12, 12, 1016, 64, torch.bfloat16, False, 0),
+    (1, 12, 12, 4064, 64, torch.bfloat16, True, 0),
 ])
 def test_flash_kernel_matches_plain(cuda, b, h, hkv, s, d, dtype, causal,
                                     window):
