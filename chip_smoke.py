@@ -123,6 +123,14 @@ runs none of the phases: it builds another ``flash_attention.cu`` (a parent
 commit's, say) beside this checkout's and prints, for each D=128 and D=64
 main-path shape, both kernels' device time a launch in the order other,
 this, this, other, the library's before and after, and the bound.
+
+    python3 chip_smoke.py --compare-rg-lru OTHER/rg_lru.cu
+
+does the same for the RG-LRU backward: another ``rg_lru.cu`` built beside
+this checkout's, both held bit for bit to the plain reverse loop at the
+training shape (1, 4096, 2560), a ragged (2, 1001, 1000) and the griffin
+smoke config's (2, 256, 64), their device time a launch in the order other,
+this, this, other, the bound, and each build's ptxas registers.
 """
 from __future__ import annotations
 
@@ -257,9 +265,13 @@ REDESIGNED = {
         design="one warp per 32 columns, 3-stage cp.async ring",
         ptxas_entries=("rg_lru_kernel",)),
     "_rg_lru_pallas_bwd": dict(
-        design="the adjoint walked from the last step: one warp per 32 "
-               "columns, 3-stage cp.async ring of g, a shifted +1 and y "
-               "shifted -1 (72 KB dynamic shared memory)",
+        design="the adjoint walked from the last step, 16 columns a block "
+               "(160 blocks at B=1, W=2560): a memory warp loads 64-step "
+               "TMA boxes of g, a shifted +1 and y shifted -1 into a "
+               "4-stage mbarrier ring (48 KB), writes da = d * y_prev and "
+               "stores dx and da by TMA; a walker warp, one lane a column, "
+               "runs only the chain, d written over g in shared memory; "
+               "4-byte cp.async copies where W % 4 or a base is off 16 bytes",
         ptxas_entries=("rg_lru_bwd_kernel",)),
 }
 
@@ -2379,6 +2391,21 @@ FLASH_COMPARE_SHAPES = {
 }
 
 
+def _build_other(name: str, source: str) -> Tuple[Path, str]:
+    """Build another version of ``kernels/csrc/<name>.cu`` with this
+    checkout's flags into ``build/compare/``; its path and ptxas log."""
+    out_dir = ROOT / "build" / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    other_so = out_dir / f"{name}_other.so"
+    proc = subprocess.run(
+        [_cuda_build.nvcc(), *_cuda_build._flags(name), "-Xptxas", "-v",
+         "-o", str(other_so), source],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc {source}: {proc.stdout}"
+          f"{proc.stderr}")
+    return other_so, proc.stdout + proc.stderr
+
+
 def compare_flash(other_source: str) -> dict:
     """Another ``flash_attention.cu`` (a parent commit's) against this
     checkout's, on one card: the other built with the same flags under
@@ -2387,15 +2414,7 @@ def compare_flash(other_source: str) -> dict:
     other, this, this, other, with the library's call's before and after;
     each output's normwise error against ``attention_ref``."""
     from repro_torch.kernels import flash_attention as fa
-    out_dir = ROOT / "build" / "flash_compare"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    other_so = out_dir / "flash_attention_other.so"
-    proc = subprocess.run(
-        [_cuda_build.nvcc(), *_cuda_build._flags("flash_attention"),
-         "-Xptxas", "-v", "-o", str(other_so), other_source],
-        capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"nvcc {other_source}: {proc.stdout}"
-          f"{proc.stderr}")
+    other_so, _ = _build_other("flash_attention", other_source)
     libs = {"other": fa._bind(ctypes.CDLL(str(other_so))),
             "this": _cuda_build.load("flash_attention", fa._bind)}
 
@@ -2438,6 +2457,62 @@ def compare_flash(other_source: str) -> dict:
     return rows
 
 
+# the RG-LRU backward's shapes: griffin's train launch, a ragged one and the
+# griffin smoke config's (train_sharded, elastic)
+RG_LRU_COMPARE_SHAPES = {
+    "train": (1, 4096, 2560),
+    "ragged": (2, 1001, 1000),
+    "smoke": (2, 256, 64),
+}
+
+
+def compare_rg_lru(other_source: str, reports: Dict[str, str]) -> dict:
+    """Another ``rg_lru.cu`` (a parent commit's) against this checkout's
+    RG-LRU backward, on one card: the other built with the same flags under
+    another name, both held bit for bit to ``ref.rg_lru_bwd_ref`` at each
+    of :data:`RG_LRU_COMPARE_SHAPES`, their device time a launch taken in
+    the order other, this, this, other.  ``reports`` holds this checkout's
+    ptxas logs where this process built it."""
+    from repro_torch.kernels import rg_lru as rg
+    other_so, log = _build_other("rg_lru", other_source)
+    libs = {"other": rg._bind(ctypes.CDLL(str(other_so))),
+            "this": _cuda_build.load("rg_lru", rg._bind)}
+    emit("compare_rg_lru_build", ptxas={
+        "other": _cuda_build.ptxas_summary(log),
+        "this": _cuda_build.ptxas_summary(reports.get("rg_lru", "")) or None})
+
+    def call(lib, a, y, g):
+        b, s, w = g.shape
+        da, dx = torch.empty_like(g), torch.empty_like(g)
+        rc = lib.rg_lru_bwd_launch(a.data_ptr(), y.data_ptr(), g.data_ptr(),
+                                   da.data_ptr(), dx.data_ptr(), b, s, w,
+                                   torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"RG-LRU backward launch: {lib.rg_lru_error(rc)}")
+        return da, dx
+
+    rows = {}
+    for tag, shape in RG_LRU_COMPARE_SHAPES.items():
+        a, x = _gates(sum(shape), shape)
+        y = ref.rg_lru_ref(a, x)
+        g = torch.randn_like(y)
+        da_want, dx_want = ref.rg_lru_bwd_ref(a, y, g)
+        for name, lib in libs.items():
+            da, dx = call(lib, a, y, g)
+            check(torch.equal(da, da_want) and torch.equal(dx, dx_want),
+                  f"RG-LRU backward ({name}) {shape}: not bit for bit with "
+                  f"the plain reverse loop")
+        row = {"shape": list(shape), "other_us": [], "this_us": []}
+        for name in ("other", "this", "this", "other"):
+            row[f"{name}_us"].append(device_us(
+                lambda: call(libs[name], a, y, g),
+                ("rg_lru_bwd_kernel",))["device_us_per_launch"])
+        row["bound_us"] = 5 * g.numel() * 4 / PEAK_BYTES_PER_S * 1e6
+        row["bound_share"] = row["bound_us"] / statistics.mean(row["this_us"])
+        rows[tag] = row
+        emit("compare_rg_lru", case=tag, **row)
+    return rows
+
+
 EXPERIMENT_JOBS = 1000
 MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_dense", "flash_serve_moe", "flash_train_moe",
@@ -2455,14 +2530,19 @@ def main(argv: Sequence[str]) -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv[:1] == ["--compare-flash"] and len(argv) == 2:
+    if argv[:1] in (["--compare-flash"], ["--compare-rg-lru"]) \
+            and len(argv) == 2:
         info = phase_device()
-        _cuda_build.build_all()
-        compare_flash(argv[1])
+        reports = _cuda_build.build_all()
+        if argv[0] == "--compare-flash":
+            compare_flash(argv[1])
+        else:
+            compare_rg_lru(argv[1], reports)
         print(info["nvidia_smi"], flush=True)
         return 0
-    check(not argv, f"arguments {list(argv)}: none, or --compare-flash "
-          "PATH_OF_ANOTHER_flash_attention.cu")
+    check(not argv, f"arguments {list(argv)}: none, --compare-flash "
+          "PATH_OF_ANOTHER_flash_attention.cu or --compare-rg-lru "
+          "PATH_OF_ANOTHER_rg_lru.cu")
 
     t_start = time.perf_counter()
     info = phase_device()

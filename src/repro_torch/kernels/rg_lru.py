@@ -22,7 +22,10 @@ behind ``ops.rg_lru_bwd``; its plain version is
 :func:`~repro_torch.kernels.ref.rg_lru_bwd_ref`.  It reads g, a and y once
 and writes dx and da once, 5*B*S*W*4 bytes (about 63 us for one training
 launch (1, 4096, 2560) at 3.35 TB/s), and matches autograd through the
-plain loop bit for bit.
+plain loop bit for bit.  Each column stays one sequential walk, so its
+blocks are 16 columns wide (160 at the training shape, over all 132 SMs):
+a memory warp moves 64-step tiles by TMA through a 4-stage shared-memory
+ring and a walker warp runs only the chain.
 """
 from __future__ import annotations
 

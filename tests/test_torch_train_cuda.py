@@ -15,6 +15,7 @@ and summation order), and within 2e-2 in bfloat16 (the bf16 tolerance of
 the CPU tests against the JAX package).
 """
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -52,13 +53,35 @@ def _bwd_inputs(seed, shape, device):
                                                 device=device)
 
 
-# S = 1; S = 64k + 1 (one step past whole 64-step tiles); W = 32k + 8 (a
-# ragged last warp, 4-byte copies); B up to 8; the training shape
-@pytest.mark.parametrize("b,s,w", [(1, 1, 64), (2, 65, 40), (1, 129, 2568),
-                                   (8, 200, 96), (3, 37, 33),
-                                   (1, 4096, 2560)])
-def test_rg_lru_bwd_kernel_matches_plain(cuda, b, s, w):
+def _skewed(t):
+    """``t``'s values in a contiguous view 4 bytes past a 16-byte boundary
+    (a ``[1:]`` slice of a larger buffer), which TMA cannot read."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+# S = 1; S = 64k + 1 (one step past whole 64-step tiles); S = 8 * 64 + 1
+# (one step past a full 8-stage ring); W not a multiple of the 16-column
+# block (a ragged last block, TMA's zero fill); W % 4 != 0 and an operand
+# off 16 bytes (4-byte copies); B up to 8, and 3 at W = 2560; the training
+# shape
+@pytest.mark.parametrize("b,s,w,skew", [
+    (1, 1, 64, None), (2, 65, 40, None), (1, 129, 2568, None),
+    (8, 200, 96, None), (3, 37, 33, None), (1, 4096, 2560, None),
+    (2, 1001, 1000, None), (2, 300, 1001, None), (1, 513, 2560, None),
+    (3, 300, 2560, None), (2, 65, 64, "g"), (1, 600, 256, "a"),
+    (2, 130, 48, "y")])
+def test_rg_lru_bwd_kernel_matches_plain(cuda, b, s, w, skew):
     a, y, g = _bwd_inputs(b + s + w, (b, s, w), cuda)
+    if skew == "a":
+        a = _skewed(a)
+    elif skew == "y":
+        y = _skewed(y)
+    elif skew == "g":
+        g = _skewed(g)
     before = _rg_lru_pallas_bwd.launches
     da, dx = _rg_lru_pallas_bwd(a, y, g)
     torch.cuda.synchronize()
@@ -66,6 +89,33 @@ def test_rg_lru_bwd_kernel_matches_plain(cuda, b, s, w):
     da_want, dx_want = ref.rg_lru_bwd_ref(a, y, g)
     assert torch.equal(dx, dx_want)
     assert torch.equal(da, da_want)
+
+
+def test_rg_lru_bwd_kernel_on_a_fresh_thread(cuda):
+    """Launched from a thread that has made no CUDA runtime call yet, as
+    autograd's device thread can be when this backward is the first node
+    it runs: the launch binds a context before it encodes its tensor
+    maps."""
+    a, y, g = _bwd_inputs(4, (2, 300, 96), cuda)
+    _rg_lru_pallas_bwd(a, y, g)  # its freed outputs stay cached
+    torch.cuda.synchronize()
+    out = {}
+
+    def launch():
+        try:
+            out["got"] = _rg_lru_pallas_bwd(a, y, g)
+        except RuntimeError as e:
+            out["error"] = e
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    da_want, dx_want = ref.rg_lru_bwd_ref(a, y, g)
+    assert torch.equal(out["got"][0], da_want)
+    assert torch.equal(out["got"][1], dx_want)
 
 
 def test_rg_lru_bwd_strided_inputs_copied_or_refused(cuda):
