@@ -35,9 +35,11 @@ JSON line with its numbers and seconds:
                 ``IterationReporter``; every parameter leaf must get a
                 non-zero gradient, the warm-up step's loss change must be
                 near its first-order prediction, the launch counts must
-                match remat over every group and tail layer, and 4 steps
-                on a repeated batch must lower its loss; one step under
-                ``torch.profiler``
+                match remat over every group and tail layer (the attention
+                backward kernel once an attention layer a micro-batch), and
+                4 steps on a repeated batch must lower its loss; one step
+                under ``torch.profiler``, whose plain attention recompute
+                (``attention_ref``'s (S, S) products) must read 0 ms
   serve_dense   the serve phase's traffic on Llama-3-8B at full width and
                 depth (8.03 B parameters): prefill launches flash once a
                 layer, decode runs the plain chunked attention, as the
@@ -76,7 +78,8 @@ JSON line with its numbers and seconds:
                 of 4088 tokens and 8 generated tokens, on plain tensors
                 and on DTensors over the 1 x 1 mesh (teacher-forced by the
                 plain run's tokens): logits within 2e-2, prefill and decode
-                times both ways
+                times both ways, each after a warm-up at the same length,
+                the median of 3 calls
   elastic       a failure after step 1 of the griffin smoke config:
                 ``FaultTolerantRunner.on_failure`` with the one healthy rank
                 plans and builds a (1, 1) mesh and restores the checkpoint;
@@ -96,13 +99,21 @@ JSON line with its numbers and seconds:
                 float32/bf16, causal, windowed, bidirectional and ragged
                 attention at head dims 64/128/256, ragged RG-LRU shapes,
                 the RG-LRU backward at the training shape and a ragged
-                one); the fill and the RG-LRU backward must match bit for
-                bit.  CUDA-event times around
+                one, the attention backward at every mask, head dim and
+                group size); the fill and the RG-LRU backward must match
+                bit for bit, the attention backward its plain twin (and
+                autograd through ``attention_ref``, the recompute it
+                replaces) at the flash bars and two of its calls bit for
+                bit, each training forward's lse the plain one's, and each
+                main-path backward must take less device time than that
+                recompute.  CUDA-event times around
                 the wrappers, device-only times per launch
                 (``torch.profiler``) of the fill and score kernels and of
                 the main paths' flash and RG-LRU launches, bounds and the
-                library's time: ``torch.cdist`` for the score, and for
-                attention ``scaled_dot_product_attention``, which the bf16
+                library's time: ``torch.cdist`` for the score, the backward
+                alone of ``scaled_dot_product_attention`` for the attention
+                backward, and for the forward
+                ``scaled_dot_product_attention``, which the bf16
                 flash kernel must beat at the serving shape and take no
                 more than 1.25x of, in device time, at the Llama-3-8B,
                 Qwen1.5-MoE and Whisper decoder main-path launches (head
@@ -175,7 +186,7 @@ from repro_torch.core.trace import (TraceJobSpec,  # noqa: E402
 from repro_torch.core.workload import Workload  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_fwd)
+    _flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.metronome_fill import metronome_fill  # noqa: E402
 from repro_torch.kernels.metronome_score import (  # noqa: E402
     metronome_score_multilink, metronome_score_multilink_batch,
@@ -222,6 +233,12 @@ LOGIT_TOL = 2e-2
 # It catches a fault spread thinly over many small outputs (deep in the
 # window they are ~0.03), which the elementwise 2e-2 is too loose to see.
 FLASH_NORM_TOL = 5e-3
+# the attention backward against its plain twin (the same o and lse), per
+# gradient: 1e-4 abs+rel elementwise in float32 (tiled sums), the flash
+# bars in bf16 (P and dS rounded to bf16 for the tensor cores); the
+# training forward's lse against the plain one's, abs+rel
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-5
 
 # the bf16 flash kernel at D=128 and D=64 on the main paths: no slower than
 # this many times scaled_dot_product_attention on the same inputs, each in
@@ -259,8 +276,10 @@ REDESIGNED = {
                                    "(stmatrix) at D=128, in registers at "
                                    "D=64",
                 "float32": "CUDA-core FMAs"},
-        ptxas_entries=("flash_fwd_bf16ILi256E", "flash_fwd_bf16_wsILi128E",
-                       "flash_fwd_bf16_wsILi64E")),
+        # serving (Lb0E) and training (Lb1E: lse written) instantiations
+        ptxas_entries=tuple(f"{k}ELb{b}E" for b in (0, 1) for k in (
+            "flash_fwd_bf16ILi256", "flash_fwd_bf16_wsILi128",
+            "flash_fwd_bf16_wsILi64"))),
     "rg_lru_pallas": dict(
         design="one warp per 32 columns, 3-stage cp.async ring",
         ptxas_entries=("rg_lru_kernel",)),
@@ -273,16 +292,29 @@ REDESIGNED = {
                "runs only the chain, d written over g in shared memory; "
                "4-byte cp.async copies where W % 4 or a base is off 16 bytes",
         ptxas_entries=("rg_lru_bwd_kernel",)),
+    "_flash_attention_bwd": dict(
+        design="delta = rowsum(dO o O), then a dK/dV kernel with the "
+               "64-key tile outside (its group's q heads and the q tiles "
+               "that see it, in a fixed order) and a dQ kernel with the "
+               "64-row q tile outside, P rebuilt from the forward's lse; "
+               "bf16 mma.sync m16n8k16 from cp.async-staged, padded shared "
+               "tiles, P and dS through shared memory as bf16, 8 warps; "
+               "float32 on the CUDA cores, 32 x 32 tiles; no atomics",
+        ptxas_entries=tuple(f"flash_bwd_{t}ILi{d}ELb{b}E"
+                            for t in ("bf16", "f32") for d in (64, 128, 256)
+                            for b in (0, 1))),
 }
 
 # substrings of each kernel's name in a profiler trace
 FILL_KERNELS = ("fill_warp_kernel", "fill_block_kernel")
 SCORE_KERNELS = ("score_kernel",)
 FLASH_KERNELS = ("flash_fwd_",)
+FLASH_BWD_KERNELS = ("flash_bwd_", "bwd_delta")  # three launches a call
 
 SCORE_WRAPPERS = (metronome_score_multilink_batch, metronome_score_multilink,
                   metronome_score_pairwise)
-MODEL_WRAPPERS = (flash_attention_fwd, rg_lru_pallas, _rg_lru_pallas_bwd)
+MODEL_WRAPPERS = (flash_attention_fwd, _flash_attention_bwd, rg_lru_pallas,
+                  _rg_lru_pallas_bwd)
 ALL_WRAPPERS = (metronome_fill,) + SCORE_WRAPPERS + MODEL_WRAPPERS
 
 
@@ -572,7 +604,8 @@ class Recorder:
     back, which ends in a synchronisation; the model ops only enqueue."""
 
     NAMES = ("progressive_fill", "score_multilink", "score_multilink_batch",
-             "flash_attention", "rg_lru", "rg_lru_bwd")
+             "flash_attention", "flash_attention_bwd", "rg_lru",
+             "rg_lru_bwd")
 
     def __init__(self, keep: int = 1) -> None:
         self.keep = keep
@@ -675,33 +708,56 @@ def device_busy_share(fn, note: str) -> dict:
 def train_step_profile(fn, seq: int, vocab: int) -> dict:
     """:func:`device_busy_share` of one training step, plus device time by
     source: the LM head's float32 products (``aten::mm`` with a
-    vocab-sized dimension), the flash backward's recompute through
-    ``attention_ref`` (``aten::bmm`` over (seq, seq) scores), the other
-    products, and the port's kernels."""
+    vocab-sized dimension), any plain attention over (seq, seq) scores
+    (``aten::bmm``: the recompute through ``attention_ref`` that the
+    backward kernel replaced; the train phases check it reads 0), the
+    other products, and the port's kernels.  ``seq_bmm_ms_by_the_old_rule``
+    reads, outside the split, every ``aten::bmm`` with two seq-sized
+    dimensions, the rule the split used before the backward kernel: the
+    plain attention and the weight gradients that contract over seq."""
     prof, wall_us, busy_us, by_kernel = _profiled(fn, record_shapes=True)
     out = _busy_summary(wall_us, busy_us, by_kernel,
                         "one step on the repeated batch under torch.profiler")
     if busy_us <= 0.0:
         return out
     ops = {"lm_head_mm": 0.0, "attention_ref_bmm": 0.0, "other_mm_bmm": 0.0}
+    old_rule = 0.0  # the former rule: any bmm with two seq-sized dims
     for row in prof.key_averages(group_by_input_shape=True):
         if row.key not in ("aten::mm", "aten::bmm"):
             continue
         dims = [d for shape in row.input_shapes for d in shape]
         if vocab in dims:
             ops["lm_head_mm"] += row.device_time_total
-        elif row.key == "aten::bmm" and dims.count(seq) >= 2:
+            continue
+        if row.key == "aten::bmm" and dims.count(seq) >= 2:
+            old_rule += row.device_time_total
+        if row.key == "aten::bmm" and _seq_by_seq(row.input_shapes, seq):
             ops["attention_ref_bmm"] += row.device_time_total
         else:
             ops["other_mm_bmm"] += row.device_time_total
     for name, keys in (("flash_fwd", FLASH_KERNELS),
+                       ("flash_bwd", FLASH_BWD_KERNELS),
                        ("rg_lru", ("rg_lru_kernel",)),
                        ("rg_lru_bwd", ("rg_lru_bwd_kernel",))):
         ops[name] = sum(us for k, us in by_kernel.items()
                         if any(key in k for key in keys))
     ops["rest"] = busy_us - sum(ops.values())
     out["device_ms_by_source"] = {k: v / 1e3 for k, v in ops.items()}
+    out["seq_bmm_ms_by_the_old_rule"] = old_rule / 1e3  # in the split
     return out
+
+
+def _seq_by_seq(shapes, seq: int) -> bool:
+    """A batched product over (seq, seq) attention scores: an operand that
+    is (.., seq, seq), or (.., seq, d) times (.., d, seq).  A product that
+    only contracts over seq (a weight's gradient, (d, seq) x (seq, n)) is
+    not one."""
+    mats = [list(t) for t in shapes if len(t) >= 2][:2]
+    if len(mats) < 2:
+        return False
+    a, b = mats
+    return any(t[-2:] == [seq, seq] for t in mats) or \
+        (a[-2] == seq and b[-1] == seq)
 
 
 def _sync() -> None:
@@ -726,22 +782,29 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 
 def device_us(fn, kernels: Optional[Sequence[str]],
-              reps: int = 200) -> dict:
+              reps: int = 200, per_launch: int = 1,
+              per_call: bool = False) -> dict:
     """Device-only time per launch of the kernels whose names hold one of
     ``kernels``, over ``reps`` calls of ``fn``: their CUDA time under
-    ``torch.profiler`` over their launches that the trace holds.  With
-    ``kernels`` None (a library call, whose kernels this script does not
-    name) it is every device event's time over the launches of the one
-    that took the most, so a time a call, and ``device_kernels`` names
-    the events.  A trace loses the first records of a burst of launches,
-    more of them the longer the process has run (PERF.md), so the
-    burst is long and ``device_traced`` reports the share of the calls
-    (of the launches, for named kernels) it holds; a trace that holds
-    none of them (a burst of a few-microsecond kernel late in the run can
-    lose all its records) is taken again with a burst four times as long,
-    twice at most, and ``device_attempts`` counts the traces taken.
-    Fails, naming the device events the last trace does hold, where none
-    holds these kernels'."""
+    ``torch.profiler`` over their launches that the trace holds.  A
+    wrapper whose launch runs ``per_launch`` distinct kernels (the
+    attention backward's three) gets the sum of each kernel's own mean,
+    so a kernel that lost more records than another weighs no more.
+    With ``kernels`` None (a library call, whose kernels this script does
+    not name) it is every device event's time a call, and
+    ``device_kernels`` names the events: over the launches of the event
+    that took the most (one launch a call, as a library's forward), or,
+    with ``per_call``, over the calls (a path of many kernels: a
+    recompute, a library's backward; it reads low where the trace lost
+    records, and ``device_traced`` is then None).  A trace loses the
+    first records of a burst of launches, more of them the longer the
+    process has run (PERF.md), so the burst is long and
+    ``device_traced`` reports the share of the launches it holds; a
+    trace that holds none of them (a burst of a few-microsecond kernel
+    late in the run can lose all its records) is taken again with a
+    burst four times as long, twice at most, and ``device_attempts``
+    counts the traces taken.  Fails, naming the device events the last
+    trace does hold, where none holds these kernels'."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _sync()
@@ -755,28 +818,38 @@ def device_us(fn, kernels: Optional[Sequence[str]],
         ran = sum(w.launches for w in ALL_WRAPPERS) - ran
         if kernels is None or ran == 0:  # a library's or a raw launch
             ran = reps
-        total_us, count = 0.0, 0
         seen: Dict[str, int] = {}
-        heaviest = 0.0
+        by_key: Dict[str, Tuple[float, int]] = {}
         for ev in prof.key_averages():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             seen[ev.key[:60]] = ev.count
-            if kernels is None:
-                total_us += ev.self_device_time_total
-                if ev.self_device_time_total > heaviest:
-                    heaviest, count = ev.self_device_time_total, ev.count
-            elif any(k in ev.key for k in kernels):
-                total_us += ev.self_device_time_total
-                count += ev.count
+            if kernels is None or any(k in ev.key for k in kernels):
+                by_key[ev.key] = (ev.self_device_time_total, ev.count)
+        total_us = sum(us for us, _ in by_key.values())
+        counts = [n for _, n in by_key.values()]
+        if kernels is None:
+            count = reps if per_call else \
+                max(by_key.values(), default=(0.0, 0))[1]
+        elif per_launch > 1:
+            count = min(counts, default=0) \
+                if len(by_key) == per_launch else 0
+        else:
+            count = sum(counts)
         if total_us > 0.0 and count > 0:
             break
         reps *= 4
     check(total_us > 0.0 and count > 0,
-          f"torch.profiler holds none of {ran} launches of {kernels}: the "
-          f"trace's device events {seen}")
-    out = dict(device_us_per_launch=total_us / count,
-               device_traced=count / ran, device_attempts=attempt)
+          f"torch.profiler holds none of {ran} launches of {kernels} "
+          f"({per_launch} distinct kernels a launch): the trace's device "
+          f"events {seen}")
+    if kernels is not None and per_launch > 1:
+        per = sum(us / n for us, n in by_key.values())
+    else:
+        per = total_us / count
+    out = dict(device_us_per_launch=per,
+               device_traced=None if per_call else count / ran,
+               device_attempts=attempt)
     if kernels is None:
         out["device_kernels"] = seen
     return out
@@ -1315,6 +1388,7 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
               f"{name}: a zero MoE aux loss: {auxes}")
     n_attn, n_rg = _layer_counts(cfg)
     want = {"flash_attention_fwd": 2 * n_attn * n_micro * steps,
+            "_flash_attention_bwd": n_attn * n_micro * steps,
             "rg_lru_pallas": 2 * n_rg * n_micro * steps,
             "_rg_lru_pallas_bwd": n_rg * n_micro * steps}
     for w, n in want.items():
@@ -1378,6 +1452,10 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
     check(witness["predicted_dloss"] < 0.0 and lo <= witness["ratio"] <= hi,
           f"{name}: the first step's loss change is not its first-order "
           f"prediction within {FIRST_STEP_RATIO}: {witness}")
+    by_source = busy.get("device_ms_by_source")
+    check(by_source is not None and by_source["attention_ref_bmm"] == 0.0,
+          f"{name}: plain attention over (seq, seq) scores on the card: "
+          f"{by_source}")
     return out
 
 
@@ -1501,11 +1579,12 @@ def phase_train_sharded(launches, rec: Recorder,
     for w, n in path1.items():
         launches[w] = launches.get(w, 0) + n
     seconds = time.perf_counter() - t0
-    want_flash = 2 * cfg.n_layers * spec["n_micro"] * spec["steps"]
-    check(path0["flash_attention_fwd"] == path1["flash_attention_fwd"]
-          == want_flash,
-          f"train_sharded: flash launches plain {path0} sharded {path1}, "
-          f"expected {want_flash}")
+    per_step = cfg.n_layers * spec["n_micro"] * spec["steps"]
+    for w, n in (("flash_attention_fwd", 2 * per_step),
+                 ("_flash_attention_bwd", per_step)):
+        check(path0[w] == path1[w] == n,
+              f"train_sharded: {w} launches plain {path0[w]} sharded "
+              f"{path1[w]}, expected {n}")
     loss_equal = all(torch.equal(a, b) for a, b in zip(l0, l1))
     differ = [i for i, (a, b) in enumerate(zip(p0, p1))
               if not torch.equal(a, b)]
@@ -1527,6 +1606,7 @@ def phase_train_sharded(launches, rec: Recorder,
         launches[w] = launches.get(w, 0) + n
     n_attn, n_rg = _layer_counts(small)
     want = {"flash_attention_fwd": 2 * n_attn * spec["n_micro"],
+            "_flash_attention_bwd": n_attn * spec["n_micro"],
             "rg_lru_pallas": 2 * n_rg * spec["n_micro"],
             "_rg_lru_pallas_bwd": n_rg * spec["n_micro"]}
     for w, n in want.items():
@@ -1544,6 +1624,7 @@ def phase_train_sharded(launches, rec: Recorder,
                step_ms_plain=ms0, step_ms_dtensor=ms1,
                dtensor_overhead_ms=[b - a for a, b in zip(ms0, ms1)],
                flash_launches=path1["flash_attention_fwd"],
+               flash_bwd_launches=path1["_flash_attention_bwd"],
                griffin_smoke=dict(loss=float(s1[0]),
                                   launches={w: g1[w] for w in want},
                                   bit_exact=True),
@@ -1580,12 +1661,17 @@ def _serve_trace(params, cfg, prompts, gen: int, tokens=None):
     return first, steps, torch.cat(toks, dim=1), prefill_ms, step_ms
 
 
+SERVE_SHARDED_CALLS = 3  # timed calls each way, after a warm-up
+
+
 def phase_serve_sharded(launches, rec: Recorder) -> dict:
     """Llama-3-8B at full width and depth served on plain tensors and on
     DTensor parameters over the 1-rank mesh, the same weights, prompts and
     (teacher-forced) tokens: prefill and decode logits within LOGIT_TOL,
     flash once a layer in both prefills; the DTensor run's kernel inputs
-    go to ``rec``."""
+    go to ``rec``.  Each way warms up at the timed length, then times
+    SERVE_SHARDED_CALLS calls (the first counted and checked): the median
+    prefill, the decode steps of all of them."""
     torch.cuda.empty_cache()
     spec = SERVE_SHARDED
     cfg = model_configs.get_config(spec["arch"])
@@ -1593,20 +1679,35 @@ def phase_serve_sharded(launches, rec: Recorder) -> dict:
     params = init_model(cfg, gen, DEVICE)
     prompts = make_prompts(cfg, spec["requests"], spec["batch"],
                            spec["prompt_len"], gen, DEVICE)[0]
-    _serve_trace(params, cfg, prompts[:, :1022], 2)  # warm-up
+
+    def more(p, tokens):
+        """The timed calls after the first: prefill ms, decode ms."""
+        pre, dec = [], []
+        for _ in range(SERVE_SHARDED_CALLS - 1):
+            *_, pre_ms, dec_ms = _serve_trace(p, cfg, prompts, spec["gen"],
+                                              tokens=tokens)
+            pre.append(pre_ms)
+            dec.extend(dec_ms)
+        return pre, dec
+
+    _serve_trace(params, cfg, prompts, spec["gen"])  # warm-up
     p0: Dict[str, int] = {}
     with counted(p0):
         pre0, dec0, toks, pre0_ms, dec0_ms = _serve_trace(
             params, cfg, prompts, spec["gen"])
+    pre_more, dec_more = more(params, toks)
+    pre0_all, dec0_ms = [pre0_ms] + pre_more, dec0_ms + dec_more
     with use_rules(_host_mesh()):
         dparams = shard_tree(params, logical_specs(cfg))
         del params
         torch.cuda.empty_cache()
-        _serve_trace(dparams, cfg, prompts[:, :1022], 2)  # warm-up
+        _serve_trace(dparams, cfg, prompts, spec["gen"], tokens=toks)
         p1: Dict[str, int] = {}
         with counted(p1), rec.active():
             pre1, dec1, _, pre1_ms, dec1_ms = _serve_trace(
                 dparams, cfg, prompts, spec["gen"], tokens=toks)
+        pre_more, dec_more = more(dparams, toks)
+        pre1_all, dec1_ms = [pre1_ms] + pre_more, dec1_ms + dec_more
     for w, n in p1.items():
         launches[w] = launches.get(w, 0) + n
     del dparams
@@ -1629,7 +1730,11 @@ def phase_serve_sharded(launches, rec: Recorder) -> dict:
     out = dict(arch=cfg.name, batch=spec["batch"],
                prompt_len=spec["prompt_len"], gen=spec["gen"],
                mesh="1x1 (NCCL, world size 1)",
-               prefill_ms_plain=pre0_ms, prefill_ms_dtensor=pre1_ms,
+               warmup="one call at the timed length each way",
+               prefill_ms_plain=statistics.median(pre0_all),
+               prefill_ms_dtensor=statistics.median(pre1_all),
+               prefill_ms_plain_calls=pre0_all,
+               prefill_ms_dtensor_calls=pre1_all,
                decode_step_ms_plain=stats(dec0_ms),
                decode_step_ms_dtensor=stats(dec1_ms),
                prefill_max_abs_err=pre_err, decode_max_abs_err=dec_err,
@@ -1965,12 +2070,36 @@ def _sdpa(q, k, v, causal: bool, window: int) -> torch.Tensor:
 
 
 def _flash_case(q, k, v, causal: bool, window: int,
-                main_path: bool = False) -> dict:
+                main_path: bool = False, lse: bool = False) -> dict:
     """Flash kernel vs plain attention on one launch's inputs; a main
-    path's launch also gets its device-only time."""
+    path's launch also gets its device-only time.  With ``lse`` (a
+    training launch) the forward that also writes each row's logsumexp is
+    held to the plain one's lse and to the serving launch's output bit for
+    bit, and timed beside it."""
     got = flash_attention_fwd(q, k, v, causal=causal, window=window)
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     _sync()
+    lse_info = {}
+    if lse:
+        got_l, lse_got = flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+        _, lse_want = ref.attention_ref(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        lse_diff = (lse_got - lse_want).abs()
+        lse_info["lse_max_abs_err"] = float(lse_diff.max())
+        check(bool((lse_diff <= LSE_TOL + LSE_TOL * lse_want.abs()).all()),
+              f"flash lse {tuple(q.shape)}: max abs err "
+              f"{lse_info['lse_max_abs_err']} over {LSE_TOL} abs+rel")
+        check(torch.equal(got_l, got), f"flash {tuple(q.shape)}: the lse "
+              "launch's output differs from the serving launch's")
+        del lse_diff, lse_want
+        lse_info["lse_ms"] = time_ms(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, window=window, return_lse=True))
+        if main_path:
+            lse_info["lse_device_us_per_launch"] = device_us(
+                lambda: flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window, return_lse=True),
+                FLASH_KERNELS)["device_us_per_launch"]
     tol = FLASH_TOL[q.dtype]
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
@@ -2012,8 +2141,124 @@ def _flash_case(q, k, v, causal: bool, window: int,
     return dict(shape={"q": list(q.shape), "kv": list(k.shape)},
                 dtype=str(q.dtype), causal=causal, window=window,
                 max_abs_err=err, tolerance=tol, normwise_err=rel_l2,
-                ms=ms, **device, plain_ms=plain_ms,
+                ms=ms, **device, **lse_info, plain_ms=plain_ms,
                 library_ms=library_ms, library_max_abs_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                operations=n_ops, unmasked_pairs_per_head=pairs)
+
+
+def _sdpa_backward(q, k, v, do, causal: bool, window: int):
+    """The library's backward alone on the same inputs: a function that
+    takes the gradient of one ``scaled_dot_product_attention`` forward,
+    kept (timed here only; the port never calls it)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = _sdpa(*leaves, causal, window)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def _flash_bwd_case(q, k, v, o, lse, do, causal: bool, window: int,
+                    main_path: bool = False) -> dict:
+    """The attention backward kernel on one launch's inputs (the forward's
+    o and lse): held to its plain twin and to autograd through
+    ``attention_ref`` (the recompute it replaced) at the flash bars, two
+    calls bit for bit, the forward's lse to the plain one's.  A main
+    path's launch also gets the device time a launch of the kernel (its
+    three kernels), of that recompute (which it must beat) and of the
+    library's backward."""
+    causal, window = bool(causal), int(window)  # recorded as numpy
+    # as ops.flash_attention_bwd hands them on (the layers' upstream
+    # gradient is a transposed view)
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    args = (q, k, v, o, lse, do, causal, window)
+    got = _flash_attention_bwd(*args)
+    again = _flash_attention_bwd(*args)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    _sync()
+    what = (f"flash backward {tuple(q.shape)} / {tuple(k.shape)} {q.dtype} "
+            f"causal={causal} window={window}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls on the same inputs differ")
+    del again
+    tol = FLASH_BWD_TOL[q.dtype]
+
+    def compare(ref_grads, gate_normwise: bool) -> dict:
+        """Elementwise at the bar, bf16 normwise where ``gate_normwise``.
+        At window 1 a row sees its own key alone, dS = P (dP - delta) = 0
+        and dQ and dK are rounding noise: held to 1e-3 absolute there."""
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref_grads):
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"{what}: {name} not finite")
+            diff = (a - b).abs()
+            norm = float(torch.linalg.vector_norm(b))
+            errs[name] = dict(max_abs_err=float(diff.max()), normwise_err=(
+                float(torch.linalg.vector_norm(diff)) / norm if norm > 0.0
+                else None))
+            check(bool((diff <= tol + tol * b.abs()).all()),
+                  f"{what}: {name} {errs[name]}, elementwise over {tol} "
+                  "abs+rel")
+            if window == 1 and name != "dv":
+                check(float(a.abs().max()) <= 1e-3,
+                      f"{what}: {name} is not 0 where every row sees one key")
+            elif gate_normwise and q.dtype == torch.bfloat16:
+                check(errs[name]["normwise_err"] <= FLASH_NORM_TOL,
+                      f"{what}: {name} normwise over {FLASH_NORM_TOL}")
+        return errs
+
+    errs = compare(want, True)
+    del want
+
+    def recompute():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = ref.attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, do)
+
+    errs_replaced = compare(recompute(), False)
+    _, lse_want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    lse_diff = (lse - lse_want).abs()
+    lse_err = float(lse_diff.max())
+    check(bool((lse_diff <= LSE_TOL + LSE_TOL * lse_want.abs()).all()),
+          f"{what}: the forward's lse {lse_err} from the plain one's")
+    del lse_diff, lse_want
+    ms = time_ms(lambda: _flash_attention_bwd(*args))
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, window=window), reps=3, warmup=1)
+    recompute_ms = time_ms(recompute, reps=3, warmup=1)
+    device, library_ms = {}, None
+    if main_path:
+        device = device_us(lambda: _flash_attention_bwd(*args),
+                           FLASH_BWD_KERNELS, per_launch=3)
+        device["recompute_device_us"] = device_us(
+            recompute, None, reps=5, per_call=True)["device_us_per_launch"]
+        check(device["device_us_per_launch"] < device["recompute_device_us"],
+              f"{what}: {device['device_us_per_launch']} device us a launch, "
+              f"not below the recompute's {device['recompute_device_us']}")
+        try:  # a yardstick only: a backend that refuses these inputs
+            lib = _sdpa_backward(q, k, v, do, causal, window)
+            library_ms = time_ms(lib)
+            device["library_device_us"] = device_us(
+                lib, None, reps=50, per_call=True)["device_us_per_launch"]
+            del lib
+        except RuntimeError as e:  # reads as no library time
+            device.update(library_device_us=None,
+                          library_error=str(e)[:300])
+    b, h, s, d = q.shape
+    pairs = _unmasked_pairs(s, causal, window)
+    n_ops = b * h * pairs * 10 * d  # S, dP, dV, dQ, dK: 2 D each
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + lse.numel() * 4  # q, o, dO, k, v, lse read; dq, dk, dv written
+    peak = PEAK_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+        else PEAK_FP32_OPS_PER_S
+    bound_ms, bound_by = _bound(nbytes, n_ops, peak)
+    return dict(shape={"q": list(q.shape), "kv": list(k.shape)},
+                dtype=str(q.dtype), causal=causal, window=window,
+                max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                errors=errs, tolerance=tol, bit_equal_calls=True,
+                vs_replaced_recompute=errs_replaced, lse_max_abs_err=lse_err,
+                ms=ms, **device, plain_ms=plain_ms,
+                recompute_ms=recompute_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                 operations=n_ops, unmasked_pairs_per_head=pairs)
 
@@ -2079,10 +2324,51 @@ def _gates(seed: int, shape: Tuple[int, ...]):
     return a, torch.randn(shape, generator=g, device=DEVICE)
 
 
-def _flash_inputs(rec: Recorder, causal: bool) -> list:
-    """The first recorded flash launch with this causal flag."""
-    return next(a for a in rec.inputs("flash_attention")
-                if bool(a[3]) == causal)
+def _flash_inputs(rec: Recorder, causal: bool,
+                  name: str = "flash_attention") -> list:
+    """The first recorded flash launch (or backward launch) with this
+    causal flag."""
+    at = 3 if name == "flash_attention" else 6
+    return next(a for a in rec.inputs(name) if bool(a[at]) == causal)
+
+
+# the attention backward on its own: (B, H, Hkv, S, D), dtype, causal,
+# window; every mask, head dim and group size, ragged S
+FLASH_BWD_SYNTHETIC = {
+    "flash_bwd_f32_d64_g1": ((2, 4, 4, 256, 64), torch.float32, True, 0),
+    "flash_bwd_f32_d128_g4": ((2, 4, 1, 256, 128), torch.float32, True, 0),
+    "flash_bwd_f32_d256_g10_window63": ((1, 10, 1, 300, 256), torch.float32,
+                                        True, 63),
+    "flash_bwd_f32_bidirectional_window50": ((1, 2, 2, 200, 64),
+                                             torch.float32, False, 50),
+    "flash_bwd_bf16_d64_window1": ((1, 2, 1, 300, 64), torch.bfloat16, True,
+                                   1),
+    "flash_bwd_bf16_d256_window63": ((1, 2, 1, 300, 256), torch.bfloat16,
+                                     True, 63),
+    "flash_bwd_bf16_d256_g10_window2048_s3000": (
+        (1, 10, 1, 3000, 256), torch.bfloat16, True, 2048),
+    "flash_bwd_bf16_d128_bidirectional": ((1, 4, 2, 300, 128),
+                                          torch.bfloat16, False, 0),
+    "flash_bwd_bf16_d256_bidirectional_window100": (
+        (1, 4, 2, 333, 256), torch.bfloat16, False, 100),
+    "flash_bwd_bf16_s37_d256_g4": ((1, 4, 1, 37, 256), torch.bfloat16, True,
+                                   0),
+    "flash_bwd_bf16_s130_d128_g4": ((1, 8, 2, 130, 128), torch.bfloat16,
+                                    True, 0),
+    "flash_bwd_bf16_s1001_d64_g4": ((2, 4, 1, 1001, 64), torch.bfloat16,
+                                    True, 0),
+}
+
+
+def _flash_bwd_synthetic(seed: int, shape, dtype, causal: bool,
+                         window: int) -> dict:
+    b, h, hkv, s, d = shape
+    q, k, v = _qkv(seed, b, h, hkv, s, d, dtype)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(seed + 1), device=DEVICE).to(dtype)
+    return _flash_bwd_case(q, k, v, o, lse, do, causal, window)
 
 
 def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
@@ -2107,7 +2393,7 @@ def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
             ("flash_train_small_decoder", recs["train_small"], True)):
         q, k, v, causal, window = _flash_inputs(rec, causal)
         cases[name] = _flash_case(q, k, v, bool(causal), int(window),
-                                  main_path=True)
+                                  main_path=True, lse="_train_" in name)
         del q, k, v
     q, k, v, causal, window = serve.inputs("flash_attention")[0]
     cases["flash_serve"] = _flash_case(q, k, v, bool(causal), int(window),
@@ -2116,7 +2402,7 @@ def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
     cases["rg_lru_serve"] = _rg_lru_case(a, x, main_path=True)
     q, k, v, causal, window = train.inputs("flash_attention")[0]
     cases["flash_train"] = _flash_case(q, k, v, bool(causal), int(window),
-                                      main_path=True)
+                                      main_path=True, lse=True)
     a, x = train.inputs("rg_lru")[0]
     cases["rg_lru_train"] = _rg_lru_case(a, x, main_path=True)
     a, y, g = train.inputs("rg_lru_bwd")[0]
@@ -2127,11 +2413,33 @@ def model_kernel_cases(recs: Dict[str, Recorder]) -> Dict[str, dict]:
         rec = recs[tag]
         q, k, v, causal, window = rec.inputs("flash_attention")[0]
         cases[f"flash_{tag}"] = _flash_case(q, k, v, bool(causal),
-                                            int(window), main_path=True)
+                                            int(window), main_path=True,
+                                            lse=True)
         a, x = rec.inputs("rg_lru")[0]
         cases[f"rg_lru_{tag}"] = _rg_lru_case(a, x, main_path=True)
         a, y, g = rec.inputs("rg_lru_bwd")[0]
         cases[f"rg_lru_bwd_{tag}"] = _rg_lru_bwd_case(a, y, g)
+    # the attention backward on each training path's first launch: the
+    # griffin model (D=256, 10 q heads over 1, window 2048), Llama-3-8B
+    # (D=128, 32 over 8), Qwen1.5-MoE (16 over 16), Whisper's encoder
+    # (bidirectional) and decoder (D=64), and DTensor blocks
+    for name, rec, causal in (
+            ("flash_bwd_train", recs["train"], True),
+            ("flash_bwd_train_dense", recs["train_dense"], True),
+            ("flash_bwd_train_moe", recs["train_moe"], True),
+            ("flash_bwd_train_small_encoder", recs["train_small"], False),
+            ("flash_bwd_train_small_decoder", recs["train_small"], True),
+            ("flash_bwd_train_sharded", recs["train_sharded"], True),
+            ("flash_bwd_train_sharded_griffin",
+             recs["train_sharded_griffin"], True),
+            ("flash_bwd_elastic", recs["elastic"], True)):
+        inputs = _flash_inputs(rec, causal, "flash_attention_bwd")
+        cases[name] = _flash_bwd_case(*inputs, main_path=True)
+        del inputs
+    for i, (name, (shape, dtype, causal, window)) in enumerate(
+            FLASH_BWD_SYNTHETIC.items()):
+        cases[name] = _flash_bwd_synthetic(20 + i, shape, dtype, causal,
+                                           window)
     a, x = _gates(12, (2, 1001, 1000))  # S % 64 = 41, W % 32 = 8
     y = ref.rg_lru_ref(a, x)
     cases["rg_lru_bwd_ragged_2x1001x1000"] = _rg_lru_bwd_case(
@@ -2253,7 +2561,10 @@ def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
         "fill": 0.0, "score": SCORE_TOL, "rg_lru": RG_LRU_TOL,
         "rg_lru_bwd": 0.0,
         "flash": {str(k): v for k, v in FLASH_TOL.items()},
-        "flash_bf16_normwise": FLASH_NORM_TOL}, cases=cases)
+        "flash_bf16_normwise": FLASH_NORM_TOL,
+        "flash_bwd": {str(k): v for k, v in FLASH_BWD_TOL.items()},
+        "flash_bwd_bf16_normwise": FLASH_NORM_TOL, "lse": LSE_TOL},
+        cases=cases)
     return cases
 
 
@@ -2285,6 +2596,7 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
     flash = cases["flash_serve"]
     rg = cases["rg_lru_serve"]
     rg_bwd = cases["rg_lru_bwd_train"]
+    fbwd = cases["flash_bwd_train_dense"]
     score_err = max(v["max_abs_err"] for n, v in cases.items()
                     if n.startswith("score_") and "max_abs_err" in v)
     fill_err = max(v["max_abs_err"] for n, v in cases.items()
@@ -2341,7 +2653,14 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
                      "max_abs_err", "normwise_err")},
                  **_flash_ratios(cases[n])) for n in MAIN_PATH_FLASH},
              device_us_per_launch={n: v for n, v in device_us.items()
-                                   if n.startswith("flash_")},
+                                   if n.startswith("flash_")
+                                   and not n.startswith("flash_bwd_")},
+             # the training launches' device us: serving entry, lse entry
+             lse_device_us_per_launch={
+                 n: [cases[n]["device_us_per_launch"],
+                     cases[n]["lse_device_us_per_launch"]]
+                 for n in MAIN_PATH_FLASH
+                 if "lse_device_us_per_launch" in cases[n]},
              **_redesign("flash_attention_fwd", ptxas)),
         dict(name="rg_lru_pallas", route="cuda",
              source="src/repro_torch/kernels/csrc/rg_lru.cu",
@@ -2373,8 +2692,49 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
              device_us_per_launch={n: v for n, v in device_us.items()
                                    if n.startswith("rg_lru_bwd_")},
              **_redesign("_rg_lru_pallas_bwd", ptxas)),
+        dict(name="_flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/ops.py:51",
+             note="port-only: the TPU reference has no backward kernel; "
+                  "its _fa_bwd (src/repro/kernels/ops.py:51) recomputes "
+                  "the forward through attention_ref and differentiates "
+                  "it, which the port did on the card until this kernel",
+             launches=launches.get("_flash_attention_bwd", 0),
+             max_abs_err=max(v["max_abs_err"] for n, v in cases.items()
+                             if n.startswith("flash_bwd_")),
+             ms=fbwd["ms"], plain_ms=fbwd["plain_ms"],
+             bound_ms=fbwd["bound_ms"], bound_by=fbwd["bound_by"],
+             library_ms=fbwd["library_ms"],
+             library="the backward alone of torch.nn.functional."
+                     "scaled_dot_product_attention",
+             shape=fbwd["shape"],
+             main_path_cases={n: dict(
+                 {k: cases[n][k] for k in (
+                     "shape", "window", "ms", "device_us_per_launch",
+                     "recompute_device_us", "plain_ms", "bound_ms",
+                     "library_ms", "library_device_us")},
+                 normwise_err=max(e["normwise_err"] or 0.0
+                                  for e in cases[n]["errors"].values()),
+                 vs_recompute=cases[n]["device_us_per_launch"]
+                 / cases[n]["recompute_device_us"],
+                 bound_share=cases[n]["bound_ms"] * 1e3
+                 / cases[n]["device_us_per_launch"])
+                 for n in MAIN_PATH_FLASH_BWD},
+             **_redesign("_flash_attention_bwd", ptxas)),
     ]
     return {"kernels": kernels}
+
+
+def _digits(x, n: int = 6):
+    """``x`` with every float given to ``n`` significant digits, for the
+    summary line (the kernels phase's line above it keeps every digit)."""
+    if isinstance(x, float):
+        return float(f"{x:.{n}g}")
+    if isinstance(x, dict):
+        return {k: _digits(v, n) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_digits(v, n) for v in x]
+    return x
 
 
 # the D=128 and D=64 main-path launches: (B, H, Hkv, S, D, causal)
@@ -2415,7 +2775,8 @@ def compare_flash(other_source: str) -> dict:
     each output's normwise error against ``attention_ref``."""
     from repro_torch.kernels import flash_attention as fa
     other_so, _ = _build_other("flash_attention", other_source)
-    libs = {"other": fa._bind(ctypes.CDLL(str(other_so))),
+    # an older build may have no lse entry: bind its serving entry alone
+    libs = {"other": fa._bind_serving(ctypes.CDLL(str(other_so))),
             "this": _cuda_build.load("flash_attention", fa._bind)}
 
     def call(lib, q, k, v, causal):
@@ -2520,6 +2881,11 @@ MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_small_encoder", "flash_train_small_decoder",
                    "flash_serve_sharded", "flash_train_sharded",
                    "flash_train_sharded_griffin", "flash_elastic")
+MAIN_PATH_FLASH_BWD = ("flash_bwd_train", "flash_bwd_train_dense",
+                       "flash_bwd_train_moe", "flash_bwd_train_small_encoder",
+                       "flash_bwd_train_small_decoder",
+                       "flash_bwd_train_sharded",
+                       "flash_bwd_train_sharded_griffin", "flash_bwd_elastic")
 
 
 def main(argv: Sequence[str]) -> int:
@@ -2579,7 +2945,8 @@ def main(argv: Sequence[str]) -> int:
     phase_serve_sharded(launches, recs["serve_sharded"])
     phase_elastic(launches, recs["elastic"])
     cases = phase_kernels(corpus, loop, planner, recs)
-    print(json.dumps(kernel_summary(launches, cases, ptxas)), flush=True)
+    print(json.dumps(_digits(kernel_summary(launches, cases, ptxas))),
+          flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

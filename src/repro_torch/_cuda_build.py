@@ -28,7 +28,8 @@ if TYPE_CHECKING:
 
 CSRC = Path(__file__).resolve().parent / "kernels" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("metronome_fill", "metronome_score", "flash_attention", "rg_lru")
+SOURCES = ("metronome_fill", "metronome_score", "flash_attention",
+           "flash_attention_bwd", "rg_lru")
 
 # sm_90a keeps Hopper's wgmma/setmaxnreg available
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,10 +38,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # PyTorch versions do, so those kernels match them bit for bit (the score
 # kernel up to its sum order).  The flash kernel's dot products keep fused
 # multiply-adds: they are its bound, and its tolerances hold either way.
+# So do the flash backward's: its float32 CUDA-core products are fused
+# multiply-adds like the forward's, its bf16 ones run on the tensor cores
+# (no -fmad there), and it is held to its plain version at tolerances, not
+# bit for bit (its sums are tiled, the plain version's are not).
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "metronome_fill": ("-fmad=false",),
     "metronome_score": ("-fmad=false",),
     "flash_attention": (),
+    "flash_attention_bwd": (),
     "rg_lru": ("-fmad=false",),
 }
 

@@ -2,6 +2,7 @@
 #   metronome_fill  — batched progressive-filling fluid solve
 #   metronome_score — the Score phase's joint rotation score (Eq. 18)
 #   flash_attention — attention forward of a fresh prompt (dense and griffin)
+#                     and its gradient in training (flash_attention_bwd.cu)
 #   rg_lru          — the RG-LRU recurrence of the griffin family
 # Each has a plain PyTorch version in ref.py and a dispatching entry point
 # in ops.py; CPU tensors take the plain version, CUDA tensors the kernel.

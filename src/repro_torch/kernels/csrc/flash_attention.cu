@@ -60,6 +60,13 @@
 // (batch*head, 64-row q tile), q, k and v tiles staged in shared memory,
 // scores and the output slice in registers.
 //
+// Training launches (flash_attention_lse_launch) also write each row's
+// logsumexp of the masked, scaled scores, float32 (B, H, S) in natural-log
+// units, which the backward (flash_attention_bwd.cu) reads to rebuild P
+// without a second softmax pass.  Each body is a template on kLse, so the
+// serving launches (flash_attention_launch, no lse) run the code they ran
+// before; the lse store is one value a row at the end.
+//
 // Numerics follow the Pallas body: scores scaled after the dot product,
 // masked scores -1e30, running max from -1e30, final division by
 // max(l, 1e-30).  The bf16 paths keep the row sum l from float32 p before
@@ -76,6 +83,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -93,11 +101,12 @@ constexpr size_t f32_smem_bytes() {
                           static_cast<size_t>(kBQ) * (kBK + 4));
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int H,
-                  int Hkv, int S, int causal, int window, float scale) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int H, int Hkv, int S, int causal,
+                  int window, float scale) {
   constexpr int QS = D + 4;   // padded row stride of the q and k tiles
   constexpr int PS = kBK + 4;  // padded row stride of the probability tile
   constexpr int NV = D / 64;   // float4 output groups per thread and row
@@ -240,6 +249,8 @@ __global__ void __launch_bounds__(kThreads)
     const int qp = q0 + ty + 16 * i;
     if (qp >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (kLse && tx == 0)
+      lse[static_cast<size_t>(bh) * S + qp] = m[i] + logf(l[i]);
     float* orow = o + (static_cast<size_t>(bh) * S + qp) * D;
 #pragma unroll
     for (int jj = 0; jj < NV; ++jj)
@@ -249,19 +260,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Hkv, int S, int causal, int window, float scale,
-               cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Hkv, int S, int causal,
+               int window, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_f32<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_f32<D, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, S,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv, S,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -514,13 +525,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// rows r0 and r0 + 8's logsumexp in natural-log units, from the running
+// max (log2 units: scores times scale * log2(e)) and the quad-summed row
+// sums; one thread of the quad stores
+__device__ __forceinline__ void store_lse(float* lse, int bh, int S, int r0,
+                                          int lane, float m0, float l0,
+                                          float m1, float l1) {
+  if (lane % 4 != 0) return;
+  float* row = lse + static_cast<size_t>(bh) * S + r0;
+  if (r0 < S) row[0] = (m0 + log2f(l0)) * kLn2;
+  if (r0 + 8 < S) row[8] = (m1 + log2f(l1)) * kLn2;
+}
+
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
-                   __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
-                   int causal, int window, float scale_log2) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int H, int Hkv, int S, int causal, int window,
+                   float scale_log2) {
   static_assert(D == 256, "D <= 128 take flash_fwd_bf16_ws");
   constexpr int NS = D / kSlab;  // 128-byte slabs per row
   constexpr int KQ = D / 16;     // k16 steps of q.k
@@ -705,6 +729,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (kLse) store_lse(lse, bh, S, r0, lane, m0, l0, m1, l1);
   __nv_bfloat16* o0 = o + (static_cast<size_t>(bh) * S + r0) * D + cq;
   __nv_bfloat16* o1 = o0 + 8 * static_cast<size_t>(D);
 #pragma unroll
@@ -887,13 +912,14 @@ __device__ __forceinline__ void ws_softmax(float (&sc)[64], int lo0,
   l1 = l1 * corr1 + (ps[2] + ps[3]);
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_bf16_ws(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
-                      __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
-                      int causal, int window, float scale_log2) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int H, int Hkv, int S, int causal, int window,
+                      float scale_log2) {
   static_assert(D == 64 || D == 128, "the D <= 128 design");
   using L = WsLayout<D>;
   constexpr int ST = L::kStages;
@@ -1111,6 +1137,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (kLse) store_lse(lse, bh, S, r0, lane, m0, l0, m1, l1);
     __nv_bfloat16* o0 = o + (static_cast<size_t>(bh) * S + r0) * D + cq;
     __nv_bfloat16* o1 = o0 + 8 * static_cast<size_t>(D);
 #pragma unroll
@@ -1167,18 +1194,18 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
 }
 
 // D = 64 and 128 take flash_fwd_bf16_ws, D = 256 flash_fwd_bf16
-template <int D>
+template <int D, bool kLse>
 constexpr auto bf16_kernel() {
   if constexpr (D <= 128)
-    return flash_fwd_bf16_ws<D>;
+    return flash_fwd_bf16_ws<D, kLse>;
   else
-    return flash_fwd_bf16<D>;
+    return flash_fwd_bf16<D, kLse>;
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int Hkv, int S, int causal, int window, float scale,
-                cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int Hkv, int S, int causal,
+                int window, float scale, cudaStream_t stream) {
   static const EncodeTiled encode = lookup_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -1193,25 +1220,48 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       !encode_map(encode, &km, k, D, S, B * Hkv, tile_k) ||
       !encode_map(encode, &vm, v, D, S, B * Hkv, tile_k))
     return cudaErrorInvalidValue;
-  const auto kernel = bf16_kernel<D>();
+  const auto kernel = bf16_kernel<D, kLse>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTileQ - 1) / kTileQ, B * H);
   kernel<<<grid, threads, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hkv, S, causal, window,
-      scale * kLog2e);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, Hkv, S, causal,
+      window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int S, int is_bf16, int causal, int window,
+template <int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, int is_bf16, int causal, int window,
            float scale, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, o, B, H, Hkv, S, causal, window,
-                                  scale, stream)
-                 : launch_f32<D>(q, k, v, o, B, H, Hkv, S, causal, window,
-                                 scale, stream);
+  return is_bf16 ? launch_bf16<D, kLse>(q, k, v, o, lse, B, H, Hkv, S,
+                                        causal, window, scale, stream)
+                 : launch_f32<D, kLse>(q, k, v, o, lse, B, H, Hkv, S, causal,
+                                       window, scale, stream);
+}
+
+template <bool kLse>
+int launch_any(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Hkv, int S, int D, int is_bf16,
+               int causal, int window, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || S <= 0 || H % Hkv != 0 ||
+      B * H > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<64, kLse>(q, k, v, o, lse, B, H, Hkv, S, is_bf16, causal,
+                              window, scale, st);
+    case 128:
+      return launch<128, kLse>(q, k, v, o, lse, B, H, Hkv, S, is_bf16,
+                               causal, window, scale, st);
+    case 256:
+      return launch<256, kLse>(q, k, v, o, lse, B, H, Hkv, S, is_bf16,
+                               causal, window, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1227,23 +1277,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int Hkv, int S, int D,
                            int is_bf16, int causal, int window, float scale,
                            void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || S <= 0 || H % Hkv != 0 ||
-      B * H > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, S, is_bf16, causal, window,
-                        scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, S, is_bf16, causal, window,
-                         scale, st);
-    case 256:
-      return launch<256>(q, k, v, o, B, H, Hkv, S, is_bf16, causal, window,
-                         scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_any<false>(q, k, v, o, nullptr, B, H, Hkv, S, D, is_bf16,
+                           causal, window, scale, stream);
+}
+
+// the same, also writing lse (B,H,S) float32: each row's logsumexp of its
+// masked, scaled scores, in natural-log units (the training forward's)
+int flash_attention_lse_launch(const void* q, const void* k, const void* v,
+                               void* o, float* lse, int B, int H, int Hkv,
+                               int S, int D, int is_bf16, int causal,
+                               int window, float scale, void* stream) {
+  if (lse == nullptr) return cudaErrorInvalidValue;
+  return launch_any<true>(q, k, v, o, lse, B, H, Hkv, S, D, is_bf16, causal,
+                          window, scale, stream);
 }
 
 const char* flash_attention_error(int code) {

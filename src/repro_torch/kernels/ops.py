@@ -1,8 +1,9 @@
 """Public entry points of the port's kernels, with device dispatch.
 
-The model ops (``flash_attention``, ``rg_lru`` and its gradient
-``rg_lru_bwd``) take tensors and dispatch on their device: the kernel on a
-CUDA device (or raise), the plain version from :mod:`ref` on the CPU.
+The model ops (``flash_attention`` and its gradient
+``flash_attention_bwd``, ``rg_lru`` and its gradient ``rg_lru_bwd``) take
+tensors and dispatch on their device: the kernel on a CUDA device (or
+raise), the plain version from :mod:`ref` on the CPU.
 Each Metronome op takes host arrays (any float dtype; ``core`` builds
 float64), casts them to the kernels' types here — float32, and uint8 for
 the 0/1 route matrix — copies them to ``device`` once, and dispatches on
@@ -19,7 +20,7 @@ import torch
 
 from .. import _device
 from . import ref
-from .flash_attention import flash_attention_fwd
+from .flash_attention import _flash_attention_bwd, flash_attention_fwd
 from .metronome_fill import metronome_fill
 from .metronome_score import (metronome_score_multilink,
                               metronome_score_multilink_batch,
@@ -42,30 +43,45 @@ def _host(t: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel forward; the backward recomputes through
-    :func:`ref.attention_ref`, as the JAX package's ``_fa_bwd`` does."""
+    """The kernel forward, which also keeps each row's logsumexp where a
+    gradient is wanted; the backward is :func:`flash_attention_bwd` (the
+    JAX package's ``_fa_bwd`` recomputes through ``attention_ref``: the
+    same function)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+        if not any(ctx.needs_input_grad[:3]):  # serving: no lse
+            return flash_attention_fwd(q, k, v, causal=causal, window=window)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = ref.attention_ref(*leaves, causal=ctx.causal,
-                                    window=ctx.window)
-            grads = torch.autograd.grad(out, leaves, g)
-        return (*grads, None, None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, g, ctx.causal,
+                                     ctx.window), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """(B,H,S,D) x (B,Hkv,S,D)^2 -> (B,H,S,D), differentiable."""
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``o = flash_attention(q, k, v, causal, window)`` for
+    upstream gradient ``do``, from o and the forward's row logsumexp
+    ``lse``: the backward kernel on a CUDA device,
+    :func:`ref.flash_attention_bwd_ref` on the CPU.  Strided inputs are
+    copied to contiguous ones first."""
+    return _flash_attention_bwd(
+        *(t.contiguous() for t in (q, k, v, o, lse, do)), causal, window)
 
 
 # ---------------------------------------------------------------------------

@@ -22,17 +22,28 @@ def _f32(x, device=None) -> torch.Tensor:
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  sm_scale: Optional[float] = None) -> torch.Tensor:
+                  sm_scale: Optional[float] = None, return_lse: bool = False):
     """Naive full-softmax GQA attention. q: (B,H,S,D), k/v: (B,Hkv,S,D).
 
     q head h reads kv head h // (H // Hkv); masked scores take -1e30;
-    ``window`` > 0 keeps q_pos - k_pos < window."""
+    ``window`` > 0 keeps q_pos - k_pos < window.  With ``return_lse`` it
+    also returns each row's logsumexp of the masked, scaled scores,
+    float32 (B, H, S) in natural-log units, what the backward reads."""
+    s = _masked_scores(q, k, causal, window, sm_scale)
+    p = torch.softmax(s, dim=-1)
+    g = q.shape[1] // v.shape[1]
+    o = torch.einsum("bhqk,bhkd->bhqd", p,
+                     v.repeat_interleave(g, dim=1).float()).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+def _masked_scores(q, k, causal: bool, window: int,
+                   sm_scale: Optional[float]) -> torch.Tensor:
+    """float32 (B, H, S, S) scores q.k * scale, -1e30 where masked."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    g = h // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    kr = k.repeat_interleave(g, dim=1)
-    vr = v.repeat_interleave(g, dim=1)
+    kr = k.repeat_interleave(h // hkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
     q_pos = torch.arange(sq, device=q.device)[:, None]
     k_pos = torch.arange(sk, device=q.device)[None, :]
@@ -41,10 +52,44 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= q_pos >= k_pos
     if window > 0:
         mask &= (q_pos - k_pos) < window
-    s = s.masked_fill(~mask, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
-    return o.to(q.dtype)
+    return s.masked_fill(~mask, -1e30)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            sm_scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention_ref` for upstream gradient ``do``,
+    from its output ``o`` and row logsumexp ``lse``, by the explicit
+    formulas in float32: P = exp(S scale - lse), delta = rowsum(dO o O),
+    dV = sum over the group of P^T dO, dP = dO V^T, dS = P o (dP - delta),
+    dQ = scale dS K, dK = scale sum over the group of dS^T Q (S the raw
+    scores, masked ones -1e30 as in :func:`attention_ref`).  Each gradient
+    in its input's dtype."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    kr = k.repeat_interleave(g, dim=1).float()
+    vr = v.repeat_interleave(g, dim=1).float()
+    p = torch.exp(_masked_scores(q, k, causal, window, sm_scale)
+                  - lse.float()[..., None])
+    delta = (dof * o.float()).sum(dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - delta[..., None])
+    del p
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+
+    def group_sum(t):
+        return t.reshape(b, hkv, g, s, d).sum(dim=2)
+
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), \
+        group_sum(dv).to(v.dtype)
 
 
 def rg_lru_ref(a: torch.Tensor, x: torch.Tensor,

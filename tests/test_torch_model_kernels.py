@@ -3,7 +3,8 @@
 ``ops.flash_attention`` here runs its plain version (a CPU tensor) and is
 held against the reference's Pallas flash kernel in interpret mode, on
 ``TestFlashAttention``'s cases with S <= 256 (2e-5 in float32, 2e-2 in
-bfloat16, 1e-4 on gradients through the ``autograd.Function``).
+bfloat16, 1e-4 on gradients through the ``autograd.Function``, whose
+backward is the plain twin of the backward kernel on CPU tensors).
 ``ops.rg_lru`` is held against the reference's ``ref.rg_lru_ref`` and the
 model's ``lax.associative_scan`` at 1e-4, not against the Pallas RG-LRU
 kernel, which fails on this jax (ROADMAP C1).
@@ -69,16 +70,26 @@ def test_flash_bf16():
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
 
 
-def test_flash_gradients_match_jax_grad():
-    arrays = _qkv(9, 1, 2, 1, 128, 64)
+# (seed, causal, window, q heads, kv heads, S, D): the first case is the
+# one this test held alone before the backward had its own formulas; the
+# others take each mask and a ragged S through them
+@pytest.mark.parametrize("seed,causal,window,h,hkv,s,d", [
+    (9, True, 0, 2, 1, 128, 64),
+    (10, True, 32, 4, 2, 100, 64),
+    (11, False, 0, 2, 2, 96, 128),
+    (12, False, 40, 4, 1, 130, 64),
+])
+def test_flash_gradients_match_jax_grad(seed, causal, window, h, hkv, s, d):
+    arrays = _qkv(seed, 1, h, hkv, s, d)
     jx, tx = _both(arrays)
 
     def f_kernel(q_, k_, v_):
-        return (jops.flash_attention(q_, k_, v_, True, 0, True) ** 2).sum()
+        return (jops.flash_attention(q_, k_, v_, causal, window, True)
+                ** 2).sum()
 
     want = jax.grad(f_kernel, argnums=(0, 1, 2))(*jx)
     leaves = [t.requires_grad_() for t in tx]
-    (tops.flash_attention(*leaves, True, 0) ** 2).sum().backward()
+    (tops.flash_attention(*leaves, causal, window) ** 2).sum().backward()
     for w, t in zip(want, leaves):
         np.testing.assert_allclose(_f32(t.grad), _f32(w), atol=1e-4,
                                    rtol=1e-4)

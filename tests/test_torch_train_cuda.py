@@ -1,5 +1,5 @@
-"""The port's training path on the card: the RG-LRU backward kernel, the
-griffin model's gradients and the training entry point.
+"""The port's training path on the card: the attention and RG-LRU backward
+kernels, the griffin model's gradients and the training entry point.
 
 Every test here is marked ``cuda`` and skips (with its reason) where no CUDA
 device is present: a CUDA kernel has no CPU build.  The file imports only
@@ -9,6 +9,12 @@ numpy, torch and the port, so it runs on a GPU machine that has no JAX:
 
 Tolerances: the RG-LRU backward kernel bit for bit (``torch.equal``) with
 its plain reverse loop (both round every multiply and add apart); the
+attention backward kernel against its plain twin
+(``ref.flash_attention_bwd_ref``, the same o and lse) within 1e-4 abs+rel
+elementwise in float32 (other summation orders) and 2e-2 elementwise and
+5e-3 normwise per gradient in bfloat16 (P and dS rounded to bf16 for the
+tensor cores), the forward's lse within 1e-5 of the plain one's, and two
+calls bit for bit (no atomics); the
 model's per-leaf gradients on the card within 1e-4 normwise of the same
 model's on the CPU in float32 (another attention kernel, matmul library
 and summation order), and within 2e-2 in bfloat16 (the bf16 tolerance of
@@ -25,12 +31,16 @@ from repro_torch import configs
 from repro_torch import models
 from repro_torch.checkpoint import latest_step
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (_flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.rg_lru import _rg_lru_pallas_bwd, rg_lru_pallas
 from repro_torch.launch import train as ttrain
 
 GRAD_TOL = 1e-4  # float32, normwise per leaf
 GRAD_TOL_BF16 = 2e-2  # bfloat16, normwise per leaf
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # elementwise
+FLASH_BWD_NORM_TOL = 5e-3  # bf16, ||got - want|| / ||want|| per gradient
+LSE_TOL = 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -154,6 +164,150 @@ def test_rg_lru_op_is_differentiable_through_the_kernels(cuda):
     assert torch.equal(da, da_want) and torch.equal(dx, dx_want)
 
 
+def _attn_inputs(seed, b, h, hkv, s, d, dtype, device, causal, window):
+    """q, k, v, the kernel forward's o and lse, and an upstream gradient."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dtype)
+                   for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                                 (b, h, s, d)))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _assert_grads_close(got, want, dtype, window=0):
+    """Elementwise at the dtype's bar, and bf16 normwise per gradient.  At
+    window 1 each row sees its own key alone, so dS = P (dP - delta) and
+    with it dQ and dK are 0 up to rounding: a normwise error of rounding
+    noise against rounding noise means nothing, so they are held to 1e-3
+    absolute instead."""
+    tol = FLASH_BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+        if window == 1 and name != "dv":
+            assert float(a.float().abs().max()) <= 1e-3, name
+        elif dtype == torch.bfloat16:
+            err = float(torch.linalg.vector_norm(a.float() - b.float())
+                        / torch.linalg.vector_norm(b.float()))
+            assert err <= FLASH_BWD_NORM_TOL, f"{name}: normwise {err}"
+
+
+# every mask (causal, windows of 1, 63, 64, 300 and 2048, bidirectional with
+# and without a window), groups of 1, 4 and 10 q heads a kv head, head dims
+# 64, 128 and 256 in both dtypes, S ragged against the 64- and 32-row tiles
+# (37, 130, 300, 333, 1001, 1016), and the main paths' training shapes:
+# Llama-3-8B (32 over 8, D=128), Qwen1.5-MoE (16 over 16), RecurrentGemma
+# (10 over 1, D=256, window 2048), Whisper (12 over 12, D=64)
+@pytest.mark.parametrize("b,h,hkv,s,d,dtype,causal,window", [
+    (2, 4, 4, 256, 64, torch.float32, True, 0),
+    (2, 4, 1, 256, 128, torch.float32, True, 0),
+    (1, 10, 1, 300, 256, torch.float32, True, 64),
+    (1, 2, 2, 200, 64, torch.float32, False, 50),
+    (1, 4, 2, 130, 128, torch.float32, False, 0),
+    (1, 4, 1, 37, 256, torch.float32, True, 0),
+    (1, 4, 1, 37, 256, torch.bfloat16, True, 0),
+    (1, 4, 2, 130, 128, torch.bfloat16, True, 0),
+    (1, 2, 1, 300, 64, torch.bfloat16, True, 1),
+    (1, 2, 1, 300, 256, torch.bfloat16, True, 63),
+    (1, 2, 1, 256, 128, torch.bfloat16, True, 64),
+    (1, 4, 2, 333, 256, torch.bfloat16, False, 100),
+    (1, 4, 2, 300, 128, torch.bfloat16, False, 0),
+    (1, 4, 4, 512, 256, torch.bfloat16, True, 0),
+    (2, 4, 1, 1001, 64, torch.bfloat16, True, 0),
+    (1, 10, 1, 1000, 256, torch.bfloat16, True, 300),
+    (1, 12, 12, 1016, 64, torch.bfloat16, False, 0),
+    (1, 12, 12, 1024, 64, torch.bfloat16, True, 0),
+    (1, 16, 16, 1024, 128, torch.bfloat16, True, 0),
+    (1, 32, 8, 4096, 128, torch.bfloat16, True, 0),
+    (1, 10, 1, 4096, 256, torch.bfloat16, True, 2048),
+])
+def test_flash_bwd_kernel_matches_plain(cuda, b, h, hkv, s, d, dtype, causal,
+                                        window):
+    q, k, v, o, lse, do = _attn_inputs(b + h + s + d, b, h, hkv, s, d, dtype,
+                                       cuda, causal, window)
+    _, lse_want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    torch.testing.assert_close(lse, lse_want, atol=LSE_TOL, rtol=LSE_TOL)
+    before = _flash_attention_bwd.launches
+    got = _flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert _flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    _assert_grads_close(got, want, dtype, window)
+    again = _flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_bwd_kernel_on_a_fresh_thread(cuda):
+    """Launched from a thread that has made no CUDA runtime call yet, as
+    autograd's device thread can be when this backward is the first node it
+    runs."""
+    args = _attn_inputs(5, 1, 4, 2, 300, 128, torch.bfloat16, cuda, True, 0)
+    want = _flash_attention_bwd(*args, True, 0)
+    torch.cuda.synchronize()
+    out = {}
+
+    def launch():
+        try:
+            out["got"] = _flash_attention_bwd(*args, True, 0)
+        except RuntimeError as e:
+            out["error"] = e
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out["got"], want))
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, o, lse, do = _attn_inputs(6, 1, 2, 1, 64, 64, torch.float32,
+                                       cuda, True, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        _flash_attention_bwd(*(t.half() for t in (q, k, v, o)), lse,
+                             do.half())
+    with pytest.raises(ValueError, match="head dim"):
+        _flash_attention_bwd(q[..., :32], k[..., :32], v[..., :32],
+                             o[..., :32], lse, do[..., :32])
+    with pytest.raises(ValueError, match="lse"):
+        _flash_attention_bwd(q, k, v, o, lse.double(), do)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        _flash_attention_bwd(q, k, v, o, lse, strided)
+    before = _flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, strided)  # copied
+    assert _flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    _assert_grads_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_is_differentiable_through_the_kernels(cuda, dtype):
+    """``ops.flash_attention`` on the card: the forward kernel with lse, the
+    backward kernel, and the gradient against autograd through
+    ``attention_ref`` (the recompute the kernel replaces)."""
+    q, k, v, _, _, do = _attn_inputs(7, 2, 8, 2, 333, 128, dtype, cuda, True,
+                                     100)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = flash_attention_fwd.launches, _flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, True, 100)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (flash_attention_fwd.launches, _flash_attention_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*plain, causal=True,
+                                                 window=100), plain, do)
+    _assert_grads_close(got, want, dtype)
+    with torch.no_grad():  # no gradient wanted: the serving launch, no lse
+        ops.flash_attention(q, k, v, True, 100)
+
+
 def _grads(params, cfg, batch):
     xs = [p.detach().requires_grad_() for p in _tree.leaves(params)]
     loss, _ = models.loss_fn(_tree.rebuild(params, xs), cfg, batch)
@@ -176,13 +330,14 @@ def _full_width_grads_vs_cpu(device, dtype, tol, loss_tol):
     loss_cpu, want = _grads(params, cfg, batch)
     params = _tree.tree_map(lambda t: t.to(device), params)
     before = (flash_attention_fwd.launches, rg_lru_pallas.launches,
-              _rg_lru_pallas_bwd.launches)
+              _rg_lru_pallas_bwd.launches, _flash_attention_bwd.launches)
     loss, got = _grads(params, cfg,
                        {k: v.to(device) for k, v in batch.items()})
     after = (flash_attention_fwd.launches, rg_lru_pallas.launches,
-             _rg_lru_pallas_bwd.launches)
-    # remat: forward and recompute of 1 attention and 2 RG-LRU sublayers
-    assert [b - a for a, b in zip(before, after)] == [2, 4, 2]
+             _rg_lru_pallas_bwd.launches, _flash_attention_bwd.launches)
+    # remat: forward and recompute of 1 attention and 2 RG-LRU sublayers;
+    # one backward each
+    assert [b - a for a, b in zip(before, after)] == [2, 4, 2, 1]
     assert abs(loss - loss_cpu) <= loss_tol * abs(loss_cpu)
     names = [name for name, _ in _named_leaves(params)]
     errs = {}
