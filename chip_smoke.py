@@ -106,8 +106,10 @@ JSON line with its numbers and seconds:
                 replaces) at the flash bars and two of its calls bit for
                 bit, each training forward's lse the plain one's, and each
                 main-path backward must take less device time than that
-                recompute.  CUDA-event times around
-                the wrappers, device-only times per launch
+                recompute; in bf16 also under 1.5x the device time of the
+                library's backward (below) at head dims 128 and 64, and at
+                most 1.0x at the griffin model's D=256 window.  CUDA-event
+                times around the wrappers, device-only times per launch
                 (``torch.profiler``) of the fill and score kernels and of
                 the main paths' flash and RG-LRU launches, bounds and the
                 library's time: ``torch.cdist`` for the score, the backward
@@ -142,6 +144,17 @@ this checkout's, both held bit for bit to the plain reverse loop at the
 training shape (1, 4096, 2560), a ragged (2, 1001, 1000) and the griffin
 smoke config's (2, 256, 64), their device time a launch in the order other,
 this, this, other, the bound, and each build's ptxas registers.
+
+    python3 chip_smoke.py --compare-flash-bwd OTHER/flash_attention_bwd.cu
+
+does the same for the attention backward: another ``flash_attention_bwd.cu``
+(a parent commit's, or a variant of this one) built beside this
+checkout's, both held to the plain twin at the bf16 bars and two calls bit
+for bit, at each bf16 main-path training shape (griffin, Llama-3-8B,
+Qwen1.5-MoE, Whisper's encoder and decoder), their device time a launch
+in the order other, this, this, other, the library's backward before and
+after, the bound and each build's ptxas; it fails, once every shape is
+printed, where this checkout's kernel is not the faster.
 """
 from __future__ import annotations
 
@@ -186,7 +199,7 @@ from repro_torch.core.trace import (TraceJobSpec,  # noqa: E402
 from repro_torch.core.workload import Workload  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _flash_attention_bwd, flash_attention_fwd)
+    _bwd_head_split, _flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.metronome_fill import metronome_fill  # noqa: E402
 from repro_torch.kernels.metronome_score import (  # noqa: E402
     metronome_score_multilink, metronome_score_multilink_batch,
@@ -245,6 +258,11 @@ LSE_TOL = 1e-5
 # device time under torch.profiler (the CUDA-event ms around a call also
 # holds 40-70 us of host work, which moves between runs)
 FLASH_FLOOR = 1.25
+# the bf16 attention backward on the main paths, in device time against
+# the library's backward alone on the same inputs: under this many times
+# it at head dims 128 and 64, at most this many at the griffin model's
+# D=256 window (whose library call takes a mask and no flash kernel)
+FLASH_BWD_FLOOR = {64: 1.5, 128: 1.5, 256: 1.0}
 FLASH_FLOOR_CASES = ("flash_serve_dense", "flash_train_dense",
                      "flash_serve_sharded", "flash_serve_moe",
                      "flash_train_moe", "flash_serve_encdec_decoder",
@@ -293,23 +311,37 @@ REDESIGNED = {
                "4-byte cp.async copies where W % 4 or a base is off 16 bytes",
         ptxas_entries=("rg_lru_bwd_kernel",)),
     "_flash_attention_bwd": dict(
-        design="delta = rowsum(dO o O), then a dK/dV kernel with the "
-               "64-key tile outside (its group's q heads and the q tiles "
-               "that see it, in a fixed order) and a dQ kernel with the "
-               "64-row q tile outside, P rebuilt from the forward's lse; "
-               "bf16 mma.sync m16n8k16 from cp.async-staged, padded shared "
-               "tiles, P and dS through shared memory as bf16, 8 warps; "
-               "float32 on the CUDA cores, 32 x 32 tiles; no atomics",
-        ptxas_entries=tuple(f"flash_bwd_{t}ILi{d}ELb{b}E"
-                            for t in ("bf16", "f32") for d in (64, 128, 256)
-                            for b in (0, 1))),
+        design={"bfloat16": "wgmma+tma: 256 threads, two consumer "
+                            "warpgroups, thread 0 producing; row "
+                            "statistics (lse*log2e, delta) padded, then a "
+                            "dK/dV kernel (128 keys a block, 64 a "
+                            "warpgroup; 64 keys at D=256, D split over the "
+                            "warpgroups) streaming 64-row q, dO and row "
+                            "statistics through a 2-4 stage full/empty "
+                            "mbarrier ring, S^T = K Q^T and dP^T = V dO^T "
+                            "so P^T and dS^T are wgmma's register A "
+                            "operands of dV and dK; a dQ kernel (128 q rows "
+                            "a block) streaming k and v; where the key "
+                            "tiles leave SMs idle, each group's q heads "
+                            "split over blocks and their float32 partials "
+                            "summed in head order; no atomics",
+                "float32": "CUDA cores, 32 x 32 tiles"},
+        ptxas_entries=tuple(f"flash_bwd_bf16_{p}ILi{d}E"
+                            for p in ("dkdv", "dq") for d in (64, 128, 256))
+        + tuple(f"flash_bwd_f32ILi{d}ELb{b}E"
+                for d in (64, 128, 256) for b in (0, 1))
+        + tuple(f"bwd_rowstats_bf16ILi{d}E" for d in (64, 128, 256))
+        + ("bwd_reduce_dkv",)),
 }
 
 # substrings of each kernel's name in a profiler trace
 FILL_KERNELS = ("fill_warp_kernel", "fill_block_kernel")
 SCORE_KERNELS = ("score_kernel",)
 FLASH_KERNELS = ("flash_fwd_",)
-FLASH_BWD_KERNELS = ("flash_bwd_", "bwd_delta")  # three launches a call
+# the attention backward's kernels: float32 runs three a call (bwd_delta,
+# dK/dV, dQ), bf16 three (bwd_rowstats, dK/dV, dQ) or, where it splits the
+# group's q heads, four (bwd_reduce too): flash_bwd_kernels gives the count
+FLASH_BWD_KERNELS = ("flash_bwd_", "bwd_delta", "bwd_rowstats", "bwd_reduce")
 
 SCORE_WRAPPERS = (metronome_score_multilink_batch, metronome_score_multilink,
                   metronome_score_pairwise)
@@ -794,9 +826,10 @@ def device_us(fn, kernels: Optional[Sequence[str]],
     not name) it is every device event's time a call, and
     ``device_kernels`` names the events: over the launches of the event
     that took the most (one launch a call, as a library's forward), or,
-    with ``per_call``, over the calls (a path of many kernels: a
-    recompute, a library's backward; it reads low where the trace lost
-    records, and ``device_traced`` is then None).  A trace loses the
+    with ``per_call``, over the calls the trace holds (a path of many
+    kernels: a recompute, a library's backward): the fewest launches of
+    any event that ran in at least every other call, since each such
+    path runs some kernel once a call.  A trace loses the
     first records of a burst of launches, more of them the longer the
     process has run (PERF.md), so the burst is long and
     ``device_traced`` reports the share of the launches it holds; a
@@ -828,9 +861,11 @@ def device_us(fn, kernels: Optional[Sequence[str]],
                 by_key[ev.key] = (ev.self_device_time_total, ev.count)
         total_us = sum(us for us, _ in by_key.values())
         counts = [n for _, n in by_key.values()]
-        if kernels is None:
-            count = reps if per_call else \
-                max(by_key.values(), default=(0.0, 0))[1]
+        if kernels is None and per_call:
+            count = min((n for _, n in by_key.values() if 2 * n >= reps),
+                        default=0)
+        elif kernels is None:
+            count = max(by_key.values(), default=(0.0, 0))[1]
         elif per_launch > 1:
             count = min(counts, default=0) \
                 if len(by_key) == per_launch else 0
@@ -847,12 +882,21 @@ def device_us(fn, kernels: Optional[Sequence[str]],
         per = sum(us / n for us, n in by_key.values())
     else:
         per = total_us / count
-    out = dict(device_us_per_launch=per,
-               device_traced=None if per_call else count / ran,
+    out = dict(device_us_per_launch=per, device_traced=count / ran,
                device_attempts=attempt)
     if kernels is None:
         out["device_kernels"] = seen
+    elif per_launch > 1:  # each kernel's own mean
+        out["device_us_by_kernel"] = {
+            _kernel_name(k): us / n for k, (us, n) in by_key.items()}
     return out
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler's kernel name without its return type, namespace and
+    parameter list: ``flash_bwd_bf16_dq<128>``."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0] \
+        .replace("void ", "").strip()
 
 
 # ---------------------------------------------------------------------------
@@ -2156,6 +2200,16 @@ def _sdpa_backward(q, k, v, do, causal: bool, window: int):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
+def flash_bwd_kernels(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Distinct kernels one backward launch on these inputs runs (see
+    :data:`FLASH_BWD_KERNELS`)."""
+    b, h, s, d = q.shape
+    split = _bwd_head_split(
+        b, h, k.shape[1], s, d, q.dtype == torch.bfloat16,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    return 3 + (split > 1)
+
+
 def _flash_bwd_case(q, k, v, o, lse, do, causal: bool, window: int,
                     main_path: bool = False) -> dict:
     """The attention backward kernel on one launch's inputs (the forward's
@@ -2163,8 +2217,9 @@ def _flash_bwd_case(q, k, v, o, lse, do, causal: bool, window: int,
     ``attention_ref`` (the recompute it replaced) at the flash bars, two
     calls bit for bit, the forward's lse to the plain one's.  A main
     path's launch also gets the device time a launch of the kernel (its
-    three kernels), of that recompute (which it must beat) and of the
-    library's backward."""
+    kernels), of that recompute (which it must beat) and of the library's
+    backward, which the bf16 kernel must not exceed by more than
+    :data:`FLASH_BWD_FLOOR`."""
     causal, window = bool(causal), int(window)  # recorded as numpy
     # as ops.flash_attention_bwd hands them on (the layers' upstream
     # gradient is a transposed view)
@@ -2229,7 +2284,8 @@ def _flash_bwd_case(q, k, v, o, lse, do, causal: bool, window: int,
     device, library_ms = {}, None
     if main_path:
         device = device_us(lambda: _flash_attention_bwd(*args),
-                           FLASH_BWD_KERNELS, per_launch=3)
+                           FLASH_BWD_KERNELS,
+                           per_launch=flash_bwd_kernels(q, k))
         device["recompute_device_us"] = device_us(
             recompute, None, reps=5, per_call=True)["device_us_per_launch"]
         check(device["device_us_per_launch"] < device["recompute_device_us"],
@@ -2238,12 +2294,23 @@ def _flash_bwd_case(q, k, v, o, lse, do, causal: bool, window: int,
         try:  # a yardstick only: a backend that refuses these inputs
             lib = _sdpa_backward(q, k, v, do, causal, window)
             library_ms = time_ms(lib)
-            device["library_device_us"] = device_us(
-                lib, None, reps=50, per_call=True)["device_us_per_launch"]
+            lib_dev = device_us(lib, None, reps=50, per_call=True)
+            device.update(library_device_us=lib_dev["device_us_per_launch"],
+                          library_device_traced=lib_dev["device_traced"],
+                          library_device_kernels=lib_dev["device_kernels"])
             del lib
         except RuntimeError as e:  # reads as no library time
             device.update(library_device_us=None,
                           library_error=str(e)[:300])
+        if q.dtype == torch.bfloat16:
+            # under 1.5x at D <= 128, at most 1.0x at D = 256
+            floor = FLASH_BWD_FLOOR[q.shape[-1]]
+            lib_us, us = device["library_device_us"], \
+                device["device_us_per_launch"]
+            check(lib_us is not None and (us < floor * lib_us if floor > 1.0
+                                          else us <= floor * lib_us),
+                  f"{what}: {us} device us a launch against the library "
+                  f"backward's {lib_us} (at most {floor}x)")
     b, h, s, d = q.shape
     pairs = _unmasked_pairs(s, causal, window)
     n_ops = b * h * pairs * 10 * d  # S, dP, dV, dQ, dK: 2 D each
@@ -2717,6 +2784,9 @@ def kernel_summary(launches: Dict[str, int], cases: Dict[str, dict],
                                   for e in cases[n]["errors"].values()),
                  vs_recompute=cases[n]["device_us_per_launch"]
                  / cases[n]["recompute_device_us"],
+                 vs_library=cases[n]["device_us_per_launch"]
+                 / cases[n]["library_device_us"]
+                 if cases[n].get("library_device_us") else None,
                  bound_share=cases[n]["bound_ms"] * 1e3
                  / cases[n]["device_us_per_launch"])
                  for n in MAIN_PATH_FLASH_BWD},
@@ -2874,6 +2944,154 @@ def compare_rg_lru(other_source: str, reports: Dict[str, str]) -> dict:
     return rows
 
 
+# the bf16 main-path training launches of the attention backward: (B, H,
+# Hkv, S, D, causal, window); train_sharded's is train_dense's shape
+FLASH_BWD_COMPARE_SHAPES = {
+    "train": (1, 10, 1, 4096, 256, True, 2048),
+    "train_dense": (1, 32, 8, 4096, 128, True, 0),
+    "train_moe": (1, 16, 16, 4096, 128, True, 0),
+    "train_small_encoder": (1, 12, 12, 1024, 64, False, 0),
+    "train_small_decoder": (1, 12, 12, 4096, 64, True, 0),
+}
+
+
+def _bwd_launcher(lib):
+    """A call of one build's ``flash_attention_bwd_launch`` on bf16 (q, k, v,
+    o, lse, do, causal, window) returning (dq, dk, dv), and the distinct
+    kernels a call runs: a build with ``flash_attention_bwd_scratch_floats``
+    takes this checkout's arguments (a head split and sized scratch); an
+    older one (the first design's) a float32 delta (B, H, S) and no
+    split."""
+    new_abi = hasattr(lib, "flash_attention_bwd_scratch_floats")
+    fn = lib.flash_attention_bwd_launch
+    fn.restype = ctypes.c_int
+    if new_abi:
+        from repro_torch.kernels import flash_attention as fa
+        fa._bind_bwd(lib)
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd_error.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error.restype = ctypes.c_char_p
+
+    def split_of(q, k):
+        b, h, s, d = q.shape
+        return _bwd_head_split(
+            b, h, k.shape[1], s, d, True,
+            torch.cuda.get_device_properties(q.device).multi_processor_count) \
+            if new_abi else 1
+
+    def call(q, k, v, o, lse, do, causal, window):
+        b, h, s, d = q.shape
+        hkv = k.shape[1]
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr())
+        tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, d,
+                1, int(causal), int(window))
+        stream = torch.cuda.current_stream().cuda_stream
+        if new_abi:
+            split = split_of(q, k)
+            n = lib.flash_attention_bwd_scratch_floats(b, h, hkv, s, d, 1,
+                                                       split)
+            scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+            rc = fn(*head, scratch.data_ptr(), *tail, split, n,
+                    1.0 / math.sqrt(d), stream)
+        else:
+            delta = torch.empty((b, h, s), dtype=torch.float32,
+                                device=q.device)
+            rc = fn(*head, delta.data_ptr(), *tail, 1.0 / math.sqrt(d),
+                    stream)
+        check(rc == 0, f"attention backward launch: "
+              f"{lib.flash_attention_bwd_error(rc)}")
+        return dq, dk, dv
+
+    return call, lambda q, k: 3 + (split_of(q, k) > 1)
+
+
+def compare_flash_bwd(other_source: str, reports: Dict[str, str]) -> dict:
+    """Another ``flash_attention_bwd.cu`` (a parent's, or a variant of this
+    one) against this checkout's on one card: the other built with the
+    same flags under another name, both held to ``ref.flash_attention_bwd_
+    ref`` at the bf16 bars (2e-2 elementwise, 5e-3 normwise a gradient)
+    and two calls bit for bit at each of :data:`FLASH_BWD_COMPARE_SHAPES`,
+    their device time a launch in the order other, this, this, other, the
+    library's backward's before and after.  Fails, after every shape,
+    where this checkout's mean is not below the other's.  ``reports`` holds
+    this checkout's ptxas logs where this process built it."""
+    from repro_torch.kernels import flash_attention as fa
+    other_so, log = _build_other("flash_attention_bwd", other_source)
+    emit("compare_flash_bwd_build", ptxas={
+        "other": _cuda_build.ptxas_summary(log),
+        "this": _cuda_build.ptxas_summary(
+            reports.get("flash_attention_bwd", "")) or None})
+    launchers = {
+        "other": _bwd_launcher(ctypes.CDLL(str(other_so))),
+        "this": _bwd_launcher(_cuda_build.load(
+            "flash_attention_bwd", fa._bind_bwd))}
+    tol = FLASH_BWD_TOL[torch.bfloat16]
+    rows, slower = {}, []
+    for tag, (b, h, hkv, s, d, causal, window) in \
+            FLASH_BWD_COMPARE_SHAPES.items():
+        q, k, v = _qkv(2, b, h, hkv, s, d, torch.bfloat16)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        do = torch.randn(o.shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(3), device=DEVICE).to(torch.bfloat16)
+        args = (q, k, v, o, lse, do, causal, window)
+        row = {"shape": [b, h, hkv, s, d], "causal": causal,
+               "window": window, "other_us": [], "this_us": [],
+               "library_us": []}
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+        for name, (call, _) in launchers.items():
+            got, again = call(*args), call(*args)
+            _sync()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"attention backward ({name}) {tag}: two calls differ")
+            errs = {}
+            for g, x, y in zip(("dq", "dk", "dv"), got, want):
+                diff = (x.float() - y.float()).abs()
+                errs[g] = float(torch.linalg.vector_norm(diff)
+                                / torch.linalg.vector_norm(y.float()))
+                check(bool((diff <= tol + tol * y.float().abs()).all())
+                      and errs[g] <= FLASH_NORM_TOL,
+                      f"attention backward ({name}) {tag}: {g} max abs err "
+                      f"{float(diff.max())}, normwise {errs[g]}")
+            row[f"{name}_normwise_err"] = errs
+            del got, again
+        del want
+        lib = _sdpa_backward(q, k, v, do, causal, window)
+        got = device_us(lib, None, reps=50, per_call=True)
+        row["library_us"].append(got["device_us_per_launch"])
+        row["library_kernels"] = got["device_kernels"]
+        for name in ("other", "this", "this", "other"):
+            call, kernels = launchers[name]
+            got = device_us(lambda: call(*args), FLASH_BWD_KERNELS,
+                            per_launch=kernels(q, k))
+            row[f"{name}_us"].append(got["device_us_per_launch"])
+            row[f"{name}_us_by_kernel"] = got["device_us_by_kernel"]
+        row["library_us"].append(device_us(
+            lib, None, reps=50, per_call=True)["device_us_per_launch"])
+        del lib
+        n_ops = b * h * _unmasked_pairs(s, causal, window) * 10 * d
+        row["bound_us"] = n_ops / PEAK_BF16_OPS_PER_S * 1e6
+        this, other = (statistics.mean(row[f"{n}_us"])
+                       for n in ("this", "other"))
+        row.update(bound_share=row["bound_us"] / this,
+                   vs_library=this / statistics.mean(row["library_us"]),
+                   vs_other=this / other)
+        if this >= other:
+            slower.append(tag)
+        rows[tag] = row
+        emit("compare_flash_bwd", case=tag, **row)
+        del q, k, v, o, lse, do, args
+        torch.cuda.empty_cache()
+    check(not slower, f"attention backward: this checkout's kernel is not "
+          f"faster than the other at {slower}")
+    return rows
+
+
 EXPERIMENT_JOBS = 1000
 MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_dense", "flash_serve_moe", "flash_train_moe",
@@ -2896,19 +3114,19 @@ def main(argv: Sequence[str]) -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv[:1] in (["--compare-flash"], ["--compare-rg-lru"]) \
-            and len(argv) == 2:
+    compares = {"--compare-flash": lambda path, _: compare_flash(path),
+                "--compare-rg-lru": compare_rg_lru,
+                "--compare-flash-bwd": compare_flash_bwd}
+    if argv[:1] and argv[0] in compares and len(argv) == 2:
         info = phase_device()
         reports = _cuda_build.build_all()
-        if argv[0] == "--compare-flash":
-            compare_flash(argv[1])
-        else:
-            compare_rg_lru(argv[1], reports)
+        compares[argv[0]](argv[1], reports)
         print(info["nvidia_smi"], flush=True)
         return 0
     check(not argv, f"arguments {list(argv)}: none, --compare-flash "
-          "PATH_OF_ANOTHER_flash_attention.cu or --compare-rg-lru "
-          "PATH_OF_ANOTHER_rg_lru.cu")
+          "PATH_OF_ANOTHER_flash_attention.cu, --compare-rg-lru "
+          "PATH_OF_ANOTHER_rg_lru.cu or --compare-flash-bwd "
+          "PATH_OF_ANOTHER_flash_attention_bwd.cu")
 
     t_start = time.perf_counter()
     info = phase_device()

@@ -36,13 +36,18 @@ through ``attention_ref`` (``_fa_bwd``): here it is a second source,
 ``_flash_attention_bwd`` behind ``ops.flash_attention_bwd``; its plain
 version is :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`.  It
 rebuilds P from the saved ``lse`` tile by tile and never holds an (S, S)
-tensor: a dK/dV pass with the key tile outside (each block walks its
-group's q heads and the q tiles that see its keys, in a fixed order) and a
-dQ pass with the q tile outside, no atomics, so two calls agree bit for
-bit.  Bound: operations, 10*D per unmasked pair, 0.348 ms for one
-Llama-3-8B training launch (1, 32 over 8, 4096, 128, causal) at 989
-TFLOP/s.  bfloat16 runs ``mma.sync`` m16n8k16 on the tensor cores,
-float32 the CUDA cores.
+tensor: a dK/dV pass with the key tile outside (each block walks the q
+heads of its group, or its share of them, and the q tiles that see its
+keys, in a fixed order) and a dQ pass with the q tile outside, no
+atomics, so two calls agree bit for bit.  Bound: operations, 10*D per
+unmasked pair, 0.348 ms for one Llama-3-8B training launch (1, 32 over 8,
+4096, 128, causal) at 989 TFLOP/s.  bfloat16 runs on the tensor cores
+(``wgmma``; TMA loads through an mbarrier ring; S^T and dP^T computed so
+that P^T and dS^T are the register operands of dV and dK); where a batch's
+kv heads and key tiles give fewer dK/dV blocks than the card has SMs,
+:func:`_bwd_head_split` splits each group's q heads over blocks, whose
+float32 partial dK and dV a fourth kernel sums in head order.  float32
+runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -80,12 +85,31 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.flash_attention_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.flash_attention_bwd_error.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error.restype = ctypes.c_char_p
     return lib
+
+
+def _bwd_head_split(b: int, h: int, hkv: int, s: int, d: int, bf16: bool,
+                    n_sm: int) -> int:
+    """Over how many blocks the backward's dK/dV pass splits each group's
+    q heads: 1 unless the bf16 pass would have fewer blocks (one per batch,
+    kv head and key tile: 128 keys, 64 at D=256) than the card has SMs,
+    else enough parts for about two blocks an SM, at most one a q head.
+    Each part's float32 partial dK and dV are then summed in head order by
+    a fourth kernel."""
+    if not bf16:
+        return 1
+    keys = 64 if d == 256 else 128
+    blocks = b * hkv * -(-s // keys)
+    if blocks >= n_sm:
+        return 1
+    return min(h // hkv, -(-2 * n_sm // blocks))
 
 
 def _check(kernel: str, q: torch.Tensor, k: torch.Tensor
@@ -184,21 +208,30 @@ def _flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ("o", o, q.dtype, (b, h, s, d)),
         ("lse", lse, torch.float32, (b, h, s)),
         ("do", do, q.dtype, (b, h, s, d))))
-    # 16-byte cp.async copies: a view off a 16-byte boundary is copied first
-    q, k, v, do = (t.clone() if t.data_ptr() % 16 else t
-                   for t in (q, k, v, do))
+    # 16-byte copies (TMA, cp.async, vector loads): a view off a 16-byte
+    # boundary is copied first
+    q, k, v, o, do = (t.clone() if t.data_ptr() % 16 else t
+                      for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    split = _bwd_head_split(
+        b, h, hkv, s, d, bf16,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     with torch.cuda.device(q.device):
         lib = _cuda_build.load("flash_attention_bwd", _bind_bwd)
+        n_scratch = lib.flash_attention_bwd_scratch_floats(
+            b, h, hkv, s, d, int(bf16), split)
+        # delta and the row statistics, and the split's partial dK and dV
+        scratch = torch.empty(n_scratch, dtype=torch.float32,
+                              device=q.device)
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, d,
-            int(q.dtype == torch.bfloat16), int(causal), int(window),
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+            lse.data_ptr(), do.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, d, int(bf16),
+            int(causal), int(window), split, n_scratch, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream)
         _cuda_build.check_launch("flash attention backward", rc,
                                  lib.flash_attention_bwd_error)
     _flash_attention_bwd.launches += 1

@@ -24,7 +24,8 @@ from repro.kernels import ops as jops
 from repro.models import layers as jlayers
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (_flash_attention_bwd,
+from repro_torch.kernels.flash_attention import (_bwd_head_split,
+                                                 _flash_attention_bwd,
                                                  flash_attention_fwd)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
@@ -159,3 +160,40 @@ def test_strided_upstream_gradient_is_copied():
                                         window=window)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+# (B, H, Hkv, S, D, bf16, SMs) -> over how many blocks the bf16 dK/dV pass
+# splits each group's q heads: the main paths' training shapes on the
+# H100's 132 SMs (the griffin smoke config's in train_sharded and
+# elastic), float32 (never split), uneven splits and a smaller card
+HEAD_SPLITS = {
+    "llama3_8b_train": ((1, 32, 8, 4096, 128, True, 132), 1),
+    "qwen_moe_train": ((1, 16, 16, 4096, 128, True, 132), 1),
+    "whisper_encoder_one_head_a_group": ((1, 12, 12, 1024, 64, True, 132), 1),
+    "griffin_train": ((1, 10, 1, 4096, 256, True, 132), 5),
+    "griffin_smoke": ((2, 4, 1, 256, 64, True, 132), 4),
+    "float32_never": ((2, 4, 1, 256, 64, False, 132), 1),
+    "g10_over_3": ((3, 30, 3, 1200, 128, True, 132), 3),
+    "g10_over_9_d256": ((2, 10, 1, 1000, 256, True, 132), 9),
+    "g6_over_5": ((1, 24, 4, 2048, 128, True, 132), 5),
+    "at_most_a_part_a_head": ((1, 4, 1, 129, 256, True, 132), 4),
+    "griffin_on_16_sms": ((1, 10, 1, 4096, 256, True, 16), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HEAD_SPLITS))
+def test_backward_head_split(name):
+    args, want = HEAD_SPLITS[name]
+    assert _bwd_head_split(*args) == want
+
+
+@pytest.mark.parametrize("g", [1, 4, 6, 10])
+def test_backward_head_split_parts_cover_the_group(g):
+    """Part j of ``split`` takes q heads [j G / split, (j + 1) G / split),
+    as the dK/dV kernel reads them: every head exactly once, no part
+    empty, for every split the wrapper may pick."""
+    for split in range(1, g + 1):
+        parts = [range(j * g // split, (j + 1) * g // split)
+                 for j in range(split)]
+        assert all(len(p) > 0 for p in parts)
+        assert [h for p in parts for h in p] == list(range(g))

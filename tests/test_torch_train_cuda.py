@@ -31,7 +31,8 @@ from repro_torch import configs
 from repro_torch import models
 from repro_torch.checkpoint import latest_step
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import (_flash_attention_bwd,
+from repro_torch.kernels.flash_attention import (_bwd_head_split,
+                                                 _flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.rg_lru import _rg_lru_pallas_bwd, rg_lru_pallas
 from repro_torch.launch import train as ttrain
@@ -195,12 +196,16 @@ def _assert_grads_close(got, want, dtype, window=0):
             assert err <= FLASH_BWD_NORM_TOL, f"{name}: normwise {err}"
 
 
-# every mask (causal, windows of 1, 63, 64, 300 and 2048, bidirectional with
-# and without a window), groups of 1, 4 and 10 q heads a kv head, head dims
-# 64, 128 and 256 in both dtypes, S ragged against the 64- and 32-row tiles
-# (37, 130, 300, 333, 1001, 1016), and the main paths' training shapes:
-# Llama-3-8B (32 over 8, D=128), Qwen1.5-MoE (16 over 16), RecurrentGemma
-# (10 over 1, D=256, window 2048), Whisper (12 over 12, D=64)
+# every mask (causal, windows of 1, 63, 64, 300 and 2048, windows as long
+# as S and longer, bidirectional with and without a window), groups of 1,
+# 4, 6 and 10 q heads a kv head, head dims 64, 128 and 256 in both dtypes,
+# S ragged against the 32-, 64- and 128-row tiles (37, 129, 130, 300, 333,
+# 1001, 1016, 1200, 4095), the bf16 dK/dV pass's q heads split over blocks
+# unevenly (10 over 3 and over 9 parts, at B = 2 and 3; 6 over 5: see
+# test_flash_bwd_head_split_where_blocks_are_few), and the main paths'
+# training shapes: Llama-3-8B (32 over 8, D=128), Qwen1.5-MoE (16 over
+# 16), RecurrentGemma (10 over 1, D=256, window 2048: 10 over 5 parts),
+# Whisper (12 over 12, D=64)
 @pytest.mark.parametrize("b,h,hkv,s,d,dtype,causal,window", [
     (2, 4, 4, 256, 64, torch.float32, True, 0),
     (2, 4, 1, 256, 128, torch.float32, True, 0),
@@ -223,6 +228,16 @@ def _assert_grads_close(got, want, dtype, window=0):
     (1, 16, 16, 1024, 128, torch.bfloat16, True, 0),
     (1, 32, 8, 4096, 128, torch.bfloat16, True, 0),
     (1, 10, 1, 4096, 256, torch.bfloat16, True, 2048),
+    (1, 8, 2, 4095, 128, torch.bfloat16, True, 0),
+    (1, 4, 1, 129, 256, torch.bfloat16, True, 0),
+    (2, 6, 3, 129, 64, torch.bfloat16, False, 0),
+    (3, 30, 3, 1200, 128, torch.bfloat16, True, 0),
+    (1, 24, 4, 2048, 128, torch.bfloat16, True, 0),
+    (1, 4, 1, 300, 128, torch.bfloat16, True, 1),
+    (1, 10, 1, 500, 256, torch.bfloat16, True, 1),
+    (1, 4, 2, 500, 64, torch.bfloat16, True, 500),
+    (1, 10, 1, 700, 256, torch.bfloat16, True, 900),
+    (2, 10, 1, 1000, 256, torch.bfloat16, True, 300),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, b, h, hkv, s, d, dtype, causal,
                                         window):
@@ -264,6 +279,51 @@ def test_flash_bwd_kernel_on_a_fresh_thread(cuda):
     assert "error" not in out, out.get("error")
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out["got"], want))
+
+
+@pytest.mark.parametrize("h,hkv,s,d", [(16, 16, 1100, 128),
+                                       (10, 1, 600, 256)])
+def test_flash_bwd_kernel_twice_on_fresh_threads(cuda, h, hkv, s, d):
+    """Two launches, each from a thread of its own that has made no CUDA
+    runtime call yet (autograd's device thread's case), at D = 128 with no
+    head split and at D = 256 with the group's 10 q heads split over 10
+    blocks: the same bits as each other and as a launch from this
+    thread."""
+    args = _attn_inputs(d, 1, h, hkv, s, d, torch.bfloat16, cuda, True,
+                        256)
+    want = _flash_attention_bwd(*args, True, 256)
+    torch.cuda.synchronize()
+    outs = []
+
+    def launch():
+        try:
+            outs.append(_flash_attention_bwd(*args, True, 256))
+        except RuntimeError as e:
+            outs.append(e)
+
+    for _ in range(2):
+        thread = threading.Thread(target=launch)
+        thread.start()
+        thread.join(timeout=120)
+        assert not thread.is_alive()
+    torch.cuda.synchronize()
+    assert len(outs) == 2
+    for got in outs:
+        assert not isinstance(got, RuntimeError), got
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_head_split_where_blocks_are_few(cuda):
+    """The split the kernel's wrapper picks on this card for the uneven
+    cases above, and none where the key tiles fill the card."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if n_sm != 132:
+        pytest.skip(f"the cases are sized for 132 SMs, this card has {n_sm}")
+    assert _bwd_head_split(3, 30, 3, 1200, 128, True, n_sm) == 3
+    assert _bwd_head_split(2, 10, 1, 1000, 256, True, n_sm) == 9
+    assert _bwd_head_split(1, 24, 4, 2048, 128, True, n_sm) == 5
+    assert _bwd_head_split(1, 10, 1, 4096, 256, True, n_sm) == 5
+    assert _bwd_head_split(1, 32, 8, 4096, 128, True, n_sm) == 1
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(cuda):
