@@ -40,13 +40,23 @@ JSON line with its numbers and seconds:
                 4 steps on a repeated batch must lower its loss; one step
                 under ``torch.profiler``, whose plain attention recompute
                 (``attention_ref``'s (S, S) products) must read 0 ms
+  train_dots    the train phase's state, model and traffic again under
+                ``remat_policy="dots"`` (the outputs of the products
+                without batch dims saved, the rest recomputed): the first
+                micro-batch's loss and every gradient leaf must equal
+                "nothing"'s bit for bit on the same parameters and batch,
+                and the kernels must launch as often as under "nothing" a
+                micro-batch and a step; a warm-up and 3 timed steps, the
+                peak, one step under ``torch.profiler``
   serve_dense   the serve phase's traffic on Llama-3-8B at full width and
                 depth (8.03 B parameters): prefill launches flash once a
                 layer, decode runs the plain chunked attention, as the
                 reference does
   train_dense   the train phase's steps and checks on Llama-3-8B at full
                 width with its depth cut to 10 of 32 layers (one card holds
-                no more state), flash launched 4 times a layer a step
+                no more state), flash launched 4 times a layer a step;
+                then train_dense_dots, train_dots's checks and numbers on
+                its state
   serve_moe     the dense serving traffic on Qwen1.5-MoE-A2.7B at full
                 width and depth (14.32 B parameters): flash once a layer in
                 prefill, the routed experts' dispatch, products and combine
@@ -73,7 +83,9 @@ JSON line with its numbers and seconds:
                 parameter leaf bit for bit, flash launched as often (the
                 kernels run on each rank's block); the same for the griffin
                 smoke config, whose step runs the RG-LRU kernel and its
-                backward on DTensor blocks; step times both ways
+                backward on DTensor blocks, and its step under
+                ``remat_policy="dots"`` plain and on DTensors, both bit
+                for bit with "nothing"'s; step times both ways
   serve_sharded Llama-3-8B at full width and depth, one batch of 4 prompts
                 of 4088 tokens and 8 generated tokens, on plain tensors
                 and on DTensors over the 1 x 1 mesh (teacher-forced by the
@@ -178,6 +190,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import _cuda_build  # noqa: E402
+from repro_torch import _tree  # noqa: E402
 from repro_torch import configs as model_configs  # noqa: E402
 from repro_torch.configs.metronome_testbed import (MODEL_FLEET,  # noqa: E402
                                                    make_snapshot)
@@ -368,6 +381,12 @@ TRAIN = dict(arch="recurrentgemma-2b", seq=4096, batch=2, n_micro=2,
 # past it here (lr x ||g||_1 = 64 nats) and the repeated batch's loss
 # rose from 8.66 to 12.56 before it fell (PERF.md, Findings)
 TRAIN_DENSE = dict(TRAIN, arch="llama3-8b", n_layers=10, check_lr=3e-6)
+# the train and train_dense phases' state, model and traffic again under
+# remat_policy="dots" (the reference's dots_with_no_batch_dims_saveable):
+# the first micro-batch's gradients against "nothing"'s, a warm-up and
+# DOTS_STEPS timed steps, one profiled
+DOTS_PHASES = ("train", "train_dense")
+DOTS_STEPS = 3
 # the warm-up step's loss change on its batch over its first-order
 # prediction g . (p1 - p0): a gradient wrong on much of the model, or a
 # step too long for first order, moves it far off 1
@@ -757,16 +776,20 @@ def train_step_profile(fn, seq: int, vocab: int) -> dict:
     for row in prof.key_averages(group_by_input_shape=True):
         if row.key not in ("aten::mm", "aten::bmm"):
             continue
+        # self time: under remat "dots" the selective-checkpoint mode runs
+        # each forward product inside the dispatcher's own aten::mm event,
+        # so a product's kernel sits under two aten::mm events
+        us = row.self_device_time_total
         dims = [d for shape in row.input_shapes for d in shape]
         if vocab in dims:
-            ops["lm_head_mm"] += row.device_time_total
+            ops["lm_head_mm"] += us
             continue
         if row.key == "aten::bmm" and dims.count(seq) >= 2:
-            old_rule += row.device_time_total
+            old_rule += us
         if row.key == "aten::bmm" and _seq_by_seq(row.input_shapes, seq):
-            ops["attention_ref_bmm"] += row.device_time_total
+            ops["attention_ref_bmm"] += us
         else:
-            ops["other_mm_bmm"] += row.device_time_total
+            ops["other_mm_bmm"] += us
     for name, keys in (("flash_fwd", FLASH_KERNELS),
                        ("flash_bwd", FLASH_BWD_KERNELS),
                        ("rg_lru", ("rg_lru_kernel",)),
@@ -1487,8 +1510,6 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
                launches_per_step={k: path[k] // steps for k in want},
                controller_reports=ctl.reports, device_busy=busy,
                phase_seconds=timing)
-    del state
-    torch.cuda.empty_cache()
     emit(name, **out)
     check(check_losses[-1] < check_losses[0],
           f"{name}: the repeated batch's loss did not fall: {check_losses}")
@@ -1496,6 +1517,130 @@ def phase_train(launches, rec: Recorder, spec: dict = TRAIN,
     check(witness["predicted_dloss"] < 0.0 and lo <= witness["ratio"] <= hi,
           f"{name}: the first step's loss change is not its first-order "
           f"prediction within {FIRST_STEP_RATIO}: {witness}")
+    by_source = busy.get("device_ms_by_source")
+    check(by_source is not None and by_source["attention_ref_bmm"] == 0.0,
+          f"{name}: plain attention over (seq, seq) scores on the card: "
+          f"{by_source}")
+    if name in DOTS_PHASES:
+        phase_train_dots(launches, state, ds, spec, cfg, out, f"{name}_dots")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_dots(launches, state, ds: SyntheticLM, spec: dict, cfg,
+                     nothing: dict, name: str) -> dict:
+    """The state a train phase left, its model and traffic, under
+    ``remat_policy="dots"``: the first micro-batch's loss and every
+    gradient leaf bit for bit with ``"nothing"``'s on the same parameters
+    and batch, the kernels launched as often a micro-batch and a step,
+    then a warm-up and ``DOTS_STEPS`` timed steps and one profiled step.
+    ``nothing`` is the train phase's line, for the comparison."""
+    dots = dataclasses.replace(cfg, remat_policy="dots")
+    check(cfg.remat and cfg.remat_policy == "nothing",
+          f"{name}: the train phase's config is not remat 'nothing'")
+    n_micro = spec["n_micro"]
+    timing: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    batch0 = _train_batch(ds, 0, cfg)
+    b = batch0["tokens"].shape[0] // n_micro
+    micro = {k: v[:b] for k, v in batch0.items()}
+
+    def grads(c, path: Dict[str, int]):
+        xs = [p.detach().requires_grad_()
+              for p in _tree.leaves(state.params)]
+        with counted(path):
+            loss, _ = loss_fn(_tree.rebuild(state.params, xs), c, micro)
+            g = torch.autograd.grad(loss, xs)
+            _sync()
+        return loss.detach(), g
+
+    # one gradient set on the card at a time: the first goes to the host
+    w_nothing: Dict[str, int] = {}
+    w_dots: Dict[str, int] = {}
+    loss0, g = grads(cfg, w_nothing)
+    want_g = [t.cpu() for t in g]
+    del g
+    loss1, g = grads(dots, w_dots)
+    n_leaves = len(want_g)
+    differ = [i for i, (a, w) in enumerate(zip(g, want_g))
+              if not torch.equal(a.cpu(), w)]
+    del g, want_g
+    torch.cuda.empty_cache()
+    timing["witness"] = time.perf_counter() - t0
+    n_attn, n_rg = _layer_counts(cfg)
+    per_micro = {"flash_attention_fwd": 2 * n_attn,
+                 "_flash_attention_bwd": n_attn,
+                 "rg_lru_pallas": 2 * n_rg, "_rg_lru_pallas_bwd": n_rg}
+    witness = dict(loss_nothing=float(loss0), loss_dots=float(loss1),
+                   loss_bit_exact=bool(torch.equal(loss0, loss1)),
+                   leaves=n_leaves, leaves_differ=differ,
+                   launches_nothing={w: w_nothing[w] for w in per_micro},
+                   launches_dots={w: w_dots[w] for w in per_micro})
+    check(witness["loss_bit_exact"] and not differ,
+          f"{name}: the first micro-batch's loss or gradients under 'dots' "
+          f"differ from 'nothing': {witness}")
+    check(all(w_nothing[w] == w_dots[w] == n for w, n in per_micro.items()),
+          f"{name}: a micro-batch's launches: {witness}, expected "
+          f"{per_micro}")
+
+    t0 = time.perf_counter()
+    step_fn = build_train_step(dots, AdamWConfig(), n_micro)
+    step_s, losses = [], []
+
+    def one_step(step: int) -> None:
+        nonlocal state
+        batch = _train_batch(ds, step, cfg)
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the device
+        step_s.append(time.perf_counter() - t)
+
+    one_step(1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
+    path: Dict[str, int] = {}
+    with counted(path):
+        for step in range(2, 2 + DOTS_STEPS):
+            one_step(step)
+    for w, n in path.items():
+        launches[w] = launches.get(w, 0) + n
+    peak = torch.cuda.max_memory_allocated()
+    timing["steps"] = time.perf_counter() - t0
+    want = {w: n * n_micro * DOTS_STEPS for w, n in per_micro.items()}
+    for w, n in want.items():
+        check(path[w] == n, f"{name}: {path[w]} {w} launches, expected {n}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}: a loss is not finite: {losses}")
+    check(peak < torch.cuda.get_device_properties(0).total_memory,
+          f"{name}: peak {peak} bytes")
+    t0 = time.perf_counter()
+    busy = train_step_profile(lambda: step_fn(state, batch0), spec["seq"],
+                              cfg.vocab)
+    timing["profile"] = time.perf_counter() - t0
+    for w in MODEL_WRAPPERS:
+        w.launches = 0
+
+    tokens = spec["batch"] * spec["seq"]
+    timed = sorted(1e3 * t for t in step_s[1:])
+    med = statistics.median(step_s[1:])
+    flops = nothing["model_flops_per_step"]  # remat is not counted
+    out = dict(arch=cfg.name, layers=cfg.n_layers,
+               remat_policy=dots.remat_policy, seq=spec["seq"],
+               batch=spec["batch"], n_micro=n_micro, witness=witness,
+               warmup_step_ms=1e3 * step_s[0], step_ms=timed,
+               step_ms_median=1e3 * med,
+               step_ms_p90=timed[int(0.9 * (len(timed) - 1))],
+               tokens_per_s=tokens / med, losses=losses,
+               peak_memory_bytes=peak, model_flops_per_step=flops,
+               mfu=flops / (med * PEAK_BF16_OPS_PER_S),
+               launches_per_step={w: path[w] // DOTS_STEPS for w in want},
+               device_busy=busy,
+               nothing=dict(step_ms_median=nothing["step_ms_median"],
+                            peak_memory_bytes=nothing["peak_memory_bytes"],
+                            device_ms_by_source=nothing["device_busy"].get(
+                                "device_ms_by_source")),
+               phase_seconds=timing)
+    emit(name, **out)
     by_source = busy.get("device_ms_by_source")
     check(by_source is not None and by_source["attention_ref_bmm"] == 0.0,
           f"{name}: plain attention over (seq, seq) scores on the card: "
@@ -1661,6 +1806,22 @@ def phase_train_sharded(launches, rec: Recorder,
           and all(torch.equal(a, b) for a, b in zip(q0, q1)),
           "train_sharded griffin: the DTensor step differs from the plain "
           "one")
+    # the same step under remat_policy="dots", plain and on DTensors: the
+    # products it keeps are DTensors there; both bit for bit with "nothing"
+    dots = dataclasses.replace(small, remat_policy="dots")
+    s2, _, q2, g2 = _train_steps(dots, small_spec, sharded=False)
+    s3, _, q3, g3 = _train_steps(dots, small_spec, sharded=True)
+    for w, n in g3.items():
+        launches[w] = launches.get(w, 0) + n
+    for w, n in want.items():
+        check(g2[w] == g3[w] == n,
+              f"train_sharded griffin dots: {w} launches plain {g2[w]} "
+              f"sharded {g3[w]}, expected {n}")
+    check(all(torch.equal(s0[0], s[0]) for s in (s2, s3))
+          and all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(q0, q2, q3)),
+          "train_sharded griffin: a 'dots' step, plain or on DTensors, "
+          "differs from the 'nothing' one")
     out = dict(arch=cfg.name, layers=cfg.n_layers, seq=spec["seq"],
                batch=spec["batch"], n_micro=spec["n_micro"],
                steps=spec["steps"], mesh="1x1 (NCCL, world size 1)",
@@ -1672,6 +1833,9 @@ def phase_train_sharded(launches, rec: Recorder,
                griffin_smoke=dict(loss=float(s1[0]),
                                   launches={w: g1[w] for w in want},
                                   bit_exact=True),
+               griffin_smoke_dots=dict(loss=float(s3[0]),
+                                       launches={w: g3[w] for w in want},
+                                       bit_exact=True),
                seconds=seconds)
     emit("train_sharded", **out)
     return out

@@ -26,6 +26,7 @@ from ..kernels import ops
 from ..sharding import logical_shard
 from ..sharding.local import is_dtensor, local_range, on_local, settled
 from .config import ModelConfig
+from .remat import unbatched_product
 
 NEG_INF = -1e30
 
@@ -142,7 +143,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         torch.tensor(sections, device=x.device))  # (D/2,)
     # angles[b, s, f] = positions[sec_id[f], b, s] * freqs[f]
     onehot = F.one_hot(sec_id, len(sections)).float().T * freqs[None, :]
-    angles = torch.einsum("tbs,tf->bsf", positions.float(), onehot)
+    with unbatched_product():  # a product without batch dims (remat "dots")
+        angles = torch.einsum("tbs,tf->bsf", positions.float(), onehot)
     return _rotate(x, angles)
 
 

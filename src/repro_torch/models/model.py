@@ -17,9 +17,12 @@ with the per-layer weights of ``layers`` (dense, moe), ``groups`` and
 ``tail`` (griffin), ``pairs`` (xlstm), ``enc`` and ``dec`` (encdec) stacked
 on a leading axis, and its ``lax.scan`` over layers is a Python loop.  With
 ``cfg.remat`` the training forward recomputes each layer, group or pair in
-the backward pass (``torch.utils.checkpoint``, nothing saved inside, as the
-JAX package's ``nothing_saveable``).  Serving runs without autograd; caches
-are updated in place.
+the backward pass (``torch.utils.checkpoint``), by ``cfg.remat_policy`` as
+the JAX package does: ``"nothing"`` saves nothing inside
+(``nothing_saveable``), ``"dots"`` saves the outputs of the products
+without batch dimensions (``dots_with_no_batch_dims_saveable``; see
+:mod:`.remat`).  Serving runs without autograd; caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
-import torch.utils.checkpoint
 from torch.distributed.tensor import Partial, Replicate
 
 from .. import _device
@@ -39,6 +41,7 @@ from ..sharding.local import (is_dtensor, local_range, on_local, replicated,
 from . import layers as L
 from . import moe as MOE
 from . import recurrent as R
+from . import remat
 from .config import ATTN, RGLRU, ModelConfig
 
 Tree = Dict[str, Union["Tree", torch.Tensor]]
@@ -422,23 +425,10 @@ def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor,
 
 def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
     """``fn`` recomputed in the backward pass under ``cfg.remat`` (when
-    autograd records): ``torch.utils.checkpoint`` keeps only its inputs,
-    which is the JAX package's ``nothing_saveable`` policy."""
-    if not cfg.remat:
-        return fn
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: the port recomputes "
-            "everything ('nothing'); saving matmul outputs ('dots') comes "
-            "with the first config that uses it")
-
-    def remat(*args):
-        if not torch.is_grad_enabled():
-            return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
-
-    return remat
+    autograd records), by ``cfg.remat_policy``: ``"nothing"`` keeps only
+    its inputs, ``"dots"`` also the outputs of its products without batch
+    dimensions (:mod:`.remat`); any other policy raises ``ValueError``."""
+    return remat.wrap(fn, cfg.remat_policy) if cfg.remat else fn
 
 
 # ---------------------------------------------------------------------------

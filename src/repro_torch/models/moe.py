@@ -24,6 +24,7 @@ from ..sharding import current_rules, logical_shard
 from ..sharding.local import on_local, settled
 from .config import ModelConfig
 from .layers import truncated_normal
+from .remat import unbatched_product
 
 
 def init_moe(cfg: ModelConfig, generator: torch.Generator) -> Dict:
@@ -80,7 +81,8 @@ def _route(p: Dict, cfg: ModelConfig, x: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The float32 router: (probs (B, S, E), normalised gate values and
     expert indices of the top-k, (B, S, k) each)."""
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    with unbatched_product():  # a product without batch dims (remat "dots")
+        logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = _top_k(probs, cfg.top_k)
     gate_vals = gate_vals / torch.clamp_min(

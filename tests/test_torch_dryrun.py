@@ -132,6 +132,54 @@ class TestFlops:
         assert 0 < r["attention_hbm_bytes"] < r["hbm_bytes"]
 
 
+def _policy_step(cfg, policy: str):
+    """One smoke train step (one micro-batch) under ``policy``, traced,
+    and the forward alone under ``no_grad``."""
+    import dataclasses
+    from repro_torch import models, optim
+    from repro_torch.runtime import steps
+    cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+    opt = optim.AdamWConfig(lr=1e-3, warmup_steps=0)
+    state = steps.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                   "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(1, cfg.vocab, (2, 16), generator=gen)
+             for k in ("tokens", "labels")}
+    with torch.no_grad(), C.ScopeTags(), C.OpTrace() as fwd:
+        models.forward(state.params, cfg, batch["tokens"])
+    with C.ScopeTags(), C.OpTrace() as step:
+        steps.build_train_step(cfg, opt, n_micro=1)(state, batch)
+    return fwd.ops, step.ops
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-2b"])
+def test_a_dots_step_counts_each_unbatched_product_three_times(arch):
+    """Under ``remat_policy="dots"`` the recompute takes each product
+    without batch dims from the forward's saved outputs, where the trace
+    does not see it: every such product is counted three times a step (the
+    forward and its two gradients), where ``"nothing"`` adds the
+    recompute's.  Batched products and the attention scope (chunked
+    attention is rerun under both) count as before."""
+    cfg = tconfigs.get_smoke_config(arch)
+    fwd, dots = _policy_step(cfg, "dots")
+    _, nothing = _policy_step(cfg, "nothing")
+
+    def n(trace, op):
+        return sum(r["op"] == op for r in trace)
+
+    assert n(dots, "mm") == 3 * n(fwd, "mm")
+    # all but the last product of each block is recomputed under "nothing"
+    blocks = cfg.n_layers if cfg.family != "griffin" else \
+        cfg.n_layers // 3 + cfg.n_layers % 3
+    assert n(nothing, "mm") == n(dots, "mm") + n(fwd, "mm") - 1 - blocks
+    assert n(dots, "bmm") == n(nothing, "bmm") > n(fwd, "bmm") > 0
+    d, z = C.analyze(dots), C.analyze(nothing)
+    assert 0 < d["attention_hbm_bytes"] == z["attention_hbm_bytes"]
+    assert d["flops"] < z["flops"]
+    assert sum(r["scope"] == C.ATTENTION for r in dots) == \
+        sum(r["scope"] == C.ATTENTION for r in nothing)
+
+
 def _collective(name, x, *extra):
     op = getattr(torch.ops._c10d_functional, name)
     return torch.ops._c10d_functional.wait_tensor(op(x, *extra, "g"))

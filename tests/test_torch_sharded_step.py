@@ -12,8 +12,10 @@ each leaf's update p1 - p0 within 1e-3 normwise of the reference's (an
 element whose gradient is near zero may take Adam's step the other way,
 which the elementwise bound allows and the normwise one caps).  The train
 step runs for the dense, MoE (dispatch both ways), griffin and xLSTM smoke
-configs.  Prefill and two decode steps (dense, MoE, griffin and xLSTM smoke
-configs) are held at 1e-5.  Each rank's block is
+configs, and under ``remat_policy="dots"`` for the dense and griffin ones
+(the reference's ``"dots"`` step; the gathers rerun in the recompute, the
+saved products are DTensors).  Prefill and two decode steps (dense, MoE,
+griffin and xLSTM smoke configs) are held at 1e-5.  Each rank's block is
 gathered (``full_tensor``) for the comparison; ``CommDebugMode`` shows the
 collectives each step ran.  Each case spawns its 4 ranks afresh and joins
 them within 60 s; the ranks meet through a ``file://`` store under the
@@ -67,7 +69,8 @@ def _port_cfg(spec):
     from repro_torch import configs as tconfigs
     return dataclasses.replace(
         tconfigs.get_smoke_config(spec["arch"]), dtype=torch.float32,
-        param_dtype=torch.float32, moe_ep_dispatch=spec.get("ep", False))
+        param_dtype=torch.float32, moe_ep_dispatch=spec.get("ep", False),
+        remat_policy=spec.get("policy", "nothing"))
 
 
 def _comm_counts(cm):
@@ -192,10 +195,10 @@ def _spawn(tmp_path, case, spec):
         return out, json.load(f)
 
 
-def _jcfg(arch, ep=False):
+def _jcfg(arch, ep=False, policy="nothing"):
     return dataclasses.replace(jconfigs.get_smoke_config(arch),
                                dtype=jnp.float32, param_dtype=jnp.float32,
-                               moe_ep_dispatch=ep)
+                               moe_ep_dispatch=ep, remat_policy=policy)
 
 
 def _inputs(tmp_path, jparams, tokens):
@@ -209,22 +212,23 @@ def _normwise(got, want) -> float:
                  / max(np.linalg.norm(want), 1e-30))
 
 
-@pytest.mark.parametrize("arch,ep", [("llama3_8b", False),
-                                     ("qwen2_moe_a2_7b", False),
-                                     ("qwen2_moe_a2_7b", True),
-                                     ("recurrentgemma_2b", False),
-                                     ("xlstm_125m", False)],
-                         ids=["dense", "moe", "moe-ep-dispatch", "griffin",
-                              "xlstm"])
+@pytest.mark.parametrize("arch,ep,policy", [
+    ("llama3_8b", False, "nothing"), ("qwen2_moe_a2_7b", False, "nothing"),
+    ("qwen2_moe_a2_7b", True, "nothing"),
+    ("recurrentgemma_2b", False, "nothing"), ("xlstm_125m", False, "nothing"),
+    ("llama3_8b", False, "dots"), ("recurrentgemma_2b", False, "dots")],
+    ids=["dense", "moe", "moe-ep-dispatch", "griffin", "xlstm", "dense-dots",
+         "griffin-dots"])
 def test_sharded_train_step_matches_the_unsharded_reference(tmp_path, arch,
-                                                             ep):
-    jcfg = _jcfg(arch, ep)
+                                                             ep, policy):
+    jcfg = _jcfg(arch, ep, policy)
     jopt = joptim.AdamWConfig(lr=LR, warmup_steps=0)
     jstate, _ = jsteps.init_train_state(jcfg, jopt, jax.random.PRNGKey(0))
     tokens = np.random.default_rng(3).integers(
         1, jcfg.vocab, (4, 16)).astype(np.int32)
     _inputs(tmp_path, jstate.params, tokens)
-    got, comms = _spawn(tmp_path, "train", {"arch": arch, "ep": ep})
+    got, comms = _spawn(tmp_path, "train",
+                        {"arch": arch, "ep": ep, "policy": policy})
     jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(tokens)}
     js, jm = jax.jit(jsteps.build_train_step(jcfg, jopt, n_micro=2))(jstate,
                                                                     jb)

@@ -427,6 +427,116 @@ def test_full_width_bf16_gradients_match_the_cpu(cuda):
           {k: f"{v:.3g}" for k, v in sorted(errs.items())})
 
 
+WRAPPERS = (flash_attention_fwd, _flash_attention_bwd, rg_lru_pallas,
+            _rg_lru_pallas_bwd)
+DOTS_ARCHS = {"griffin": "recurrentgemma-2b", "dense": "llama3-8b",
+              "moe": "qwen2-moe-a2.7b"}
+MOE_DOTS_TOL = 1e-6  # normwise per leaf: the dispatch's accumulating put
+
+
+def _policy_run(cfg, policy, params, batch):
+    """Loss, per-leaf gradients and kernel launches of one backward under
+    ``policy``, then one two-micro-batch train step from ``params``: its
+    loss and new parameters."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import TrainState, build_train_step
+    cfg = dataclasses.replace(cfg, remat_policy=policy)
+    before = [w.launches for w in WRAPPERS]
+    loss, grads = _grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0)
+    params = _tree.tree_map(torch.clone, params)  # the step updates in place
+    state = TrainState(params, adamw_init(opt, params),
+                       torch.zeros((), dtype=torch.int32,
+                                   device=batch["tokens"].device))
+    state, m = build_train_step(cfg, opt, n_micro=2)(state, batch)
+    return (loss, grads, launches, m["loss"], _tree.leaves(state.params))
+
+
+def _rel(a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("family", sorted(DOTS_ARCHS))
+def test_dots_step_equals_nothing_on_the_card(cuda, family):
+    """``remat_policy="dots"`` on the card: the same kernel launches as
+    ``"nothing"`` (the forward's, the recompute's and the backward's), the
+    gradients and one train step bit for bit (the MoE's within 1e-6
+    normwise a leaf: the dispatch's accumulating ``index_put``)."""
+    cfg = dataclasses.replace(configs.get_smoke_config(DOTS_ARCHS[family]),
+                              d_head=64)
+    params = models.init_model(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab, (4, 256), generator=g, device=cuda)
+    batch = {"tokens": tokens, "labels": tokens}
+    want = _policy_run(cfg, "nothing", params, batch)
+    got = _policy_run(cfg, "dots", params, batch)
+    assert got[2] == want[2]
+    assert got[2][0] > 0 and (got[2][2] > 0) == (family == "griffin")
+    pairs = list(zip([torch.tensor(got[0]), got[3], *got[1], *got[4]],
+                     [torch.tensor(want[0]), want[3], *want[1], *want[4]]))
+    for a, b in pairs:
+        if family == "moe":
+            assert _rel(a, b) <= MOE_DOTS_TOL
+        else:
+            assert torch.equal(a, b)
+
+
+def test_sharded_dots_step_on_one_rank_equals_the_plain_dots_step(cuda):
+    """``tests/test_torch_sharding_cuda.py``'s 1 x 1 NCCL mesh step under
+    ``remat_policy="dots"``: the saved products are DTensors, the step bit
+    for bit with the plain dots step, flash launched as often."""
+    from test_torch_sharding_cuda import _step
+    cfg = dataclasses.replace(configs.get_smoke_config("llama3_8b"),
+                              d_head=64, remat_policy="dots")
+    loss0, p0, n0 = _step(cfg, cuda, sharded=False)
+    loss1, p1, n1 = _step(cfg, cuda, sharded=True)
+    assert n0 == n1 == 2 * cfg.n_layers * 2  # 2 micro-batches, + recompute
+    assert torch.equal(loss0, loss1)
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_from_autograd_under_dots_on_a_fresh_thread(cuda):
+    """``test_flash_bwd_kernel_on_a_fresh_thread`` through the model under
+    ``remat_policy="dots"``: a forward and backward from a thread that has
+    made no CUDA runtime call yet, whose recompute and attention backward
+    kernels run on autograd's device thread, against the same gradients
+    under ``"nothing"`` from this thread, bit for bit."""
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-moe-a2.7b"),
+                              d_head=64)
+    params = models.init_model(
+        cfg, torch.Generator(device=cuda).manual_seed(2), cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab, (2, 300), generator=g, device=cuda)
+    batch = {"tokens": tokens, "labels": tokens}
+    _, want = _grads(params, dataclasses.replace(cfg, remat_policy="nothing"),
+                     batch)
+    torch.cuda.synchronize()
+    before = _flash_attention_bwd.launches
+    out = {}
+
+    def run():
+        try:
+            out["got"] = _grads(params, dataclasses.replace(
+                cfg, remat_policy="dots"), batch)[1]
+        except RuntimeError as e:
+            out["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    assert _flash_attention_bwd.launches - before == cfg.n_layers
+    for a, b in zip(out["got"], want):
+        assert _rel(a, b) <= MOE_DOTS_TOL
+
+
 def _named_leaves(tree, prefix=""):
     for k in sorted(tree):
         if isinstance(tree[k], dict):
