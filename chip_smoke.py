@@ -18,6 +18,18 @@ JSON line with its numbers and seconds:
   experiment    ``experiment.run`` end to end on a production trace on the
                 2-leaf x 2-host 2:1 leaf-spine fabric, fluid fill on the card,
                 sampled in-loop solves held against ``fill_python``
+  paper_grid    the paper's evaluation grid through ``experiment.sweep``
+                with the fill on the card, at the reference benches'
+                settings: every scheduler of the registry (Metronome,
+                Default, Diktyo, Exclusive) and the ideal run on the
+                snapshots S1-S5, F2, F4, J1; the ablations on S1-S5; the
+                dynamic D1, D2 at three amplitudes; the fault R1, R2; the
+                Fig. 10 trace; each cell run again on the CPU (the fill's
+                plain version), whose results JSON must equal the card's;
+                then the production trace under four schedulers (no CPU
+                twin).  Every card cell's in-loop solves held against
+                ``fill_python``; one line a cell, and a summary of the
+                benches' derived numbers (printed, not gated)
   planner       J1 and F4 scheduled, then ``rotation.joint_solve`` and a
                 candidate batch through ``joint_solve_batch`` with
                 ``backend='kernel'`` held against ``backend='numpy'``
@@ -192,21 +204,28 @@ import torch  # noqa: E402
 from repro_torch import _cuda_build  # noqa: E402
 from repro_torch import _tree  # noqa: E402
 from repro_torch import configs as model_configs  # noqa: E402
-from repro_torch.configs.metronome_testbed import (MODEL_FLEET,  # noqa: E402
-                                                   make_snapshot)
+from repro_torch.configs.metronome_testbed import (  # noqa: E402
+    DYNAMIC_SNAPSHOTS, FABRIC_SNAPSHOTS, FAULT_SNAPSHOTS, JOINT_SNAPSHOTS,
+    MODEL_FLEET, SNAPSHOTS, dynamic_scenario, fault_scenario, make_snapshot,
+    snapshot_scenario, trace_scenario)
 from repro_torch.core import events as events_mod  # noqa: E402
+from repro_torch.core import experiment as experiment_mod  # noqa: E402
 from repro_torch.core import fluid, rotation  # noqa: E402
 from repro_torch.core.cluster import make_fabric_cluster  # noqa: E402
 from repro_torch.core.contention import LinkView  # noqa: E402
 from repro_torch.core.controller import StopAndWaitController  # noqa: E402
-from repro_torch.core.experiment import Policy, Scenario, run  # noqa: E402
+from repro_torch.core.experiment import (Policy, Scenario,  # noqa: E402
+                                         run, sweep)
+from repro_torch.core.results import (ExperimentResult,  # noqa: E402
+                                      SweepResult)
 from repro_torch.core.framework import SchedulingFramework  # noqa: E402
 from repro_torch.core.scheduler import MetronomePlugin  # noqa: E402
 from repro_torch.core.simulator import SimConfig  # noqa: E402
 from repro_torch.core.topology import is_uplink, uplink_id  # noqa: E402
 from repro_torch.core.trace import (TraceJobSpec,  # noqa: E402
-                                    active_jobs_at,
+                                    active_jobs_at, cluster_load,
                                     generate_production_trace,
+                                    generate_trace,
                                     trace_departure_events, trace_job_name,
                                     trace_to_jobs)
 from repro_torch.core.workload import Workload  # noqa: E402
@@ -573,9 +592,13 @@ DYNAMIC_POLICY = Policy("metronome", skip_third_stage=True,
                         rotation_joint=False)
 
 
+def dynamic_sim_kw(trace: Sequence[TraceJobSpec]) -> dict:
+    return dict(duration_ms=horizon_ms(trace) + 1_000.0, seed=3,
+                jitter_std=0.01)
+
+
 def dynamic_sim_config(trace: Sequence[TraceJobSpec], **kw) -> SimConfig:
-    return SimConfig(duration_ms=horizon_ms(trace) + 1_000.0, seed=3,
-                     jitter_std=0.01, **kw)
+    return SimConfig(**dynamic_sim_kw(trace), **kw)
 
 
 @contextlib.contextmanager
@@ -606,6 +629,224 @@ def audit_error(engine: fluid.FluidEngine) -> float:
         if len(gold):
             err = max(err, float(np.max(np.abs(r - gold))))
     return err
+
+
+# ---------------------------------------------------------------------------
+# the paper's evaluation grid: the settings of the reference's benches
+# (benchmarks/common.py, bench_snapshots, bench_ablation, bench_dynamic,
+# bench_tct; the fault cells as tests/test_torch_robustness.py runs them),
+# copied because they import the JAX package;
+# tests/test_torch_paper_grid.py holds each to the bench's own value
+# ---------------------------------------------------------------------------
+
+PAPER_SCHEDULERS = ("metronome", "default", "diktyo", "exclusive", "ideal")
+GRID_SNAPSHOTS = SNAPSHOTS + FABRIC_SNAPSHOTS + JOINT_SNAPSHOTS
+BENCH_ITERATIONS = 400
+BENCH_SIM = dict(duration_ms=150_000.0, seed=3, jitter_std=0.01)
+ABLATIONS = (Policy("metronome", label="full"),
+             Policy("metronome", skip_third_stage=True,
+                    rotation_mode="compact", label="wo_stage3"))
+ABLATION_SIM = dict(BENCH_SIM, jitter_std=0.02)
+DYNAMIC_AMPLITUDES = (0.2, 0.3, 0.4)
+DYNAMIC_SCENARIO_KW = dict(n_iterations=300, t_on_ms=15_000.0,
+                           t_off_ms=45_000.0)
+DYNAMIC_GRID_POLICIES = (
+    Policy("metronome"),
+    Policy("metronome", reconfigure=False, label="metronome_noreconf"),
+    Policy("default"))
+DYNAMIC_SIM = dict(duration_ms=120_000.0, seed=3, jitter_std=0.01)
+FAULT_SCHEDULERS = ("metronome", "default", "diktyo", "exclusive")
+FAULT_KW = dict(n_iterations=30, start_ms=3_000.0, period_ms=6_000.0,
+                down_ms=1_000.0, n_cycles=2)
+FAULT_SIM = dict(duration_ms=20_000.0, seed=3, jitter_std=0.01)
+FIG10_TRACE_KW = dict(duration_s=1800, total_gpus=13, target_load=0.85,
+                      seed=1, job_duration_range_s=(120, 240))
+FIG10_JOBS = 10
+FIG10_SCHEDULERS = ("metronome", "default", "diktyo")
+FIG10_SIM = dict(duration_ms=1_200_000, seed=0, jitter_std=0.01)
+# the production trace: no ideal run (one cluster copy a job) and no CPU
+# twin (its cost); DYNAMIC_POLICY's run is the experiment phase's
+PRODUCTION_POLICIES = tuple(Policy(s) for s in FAULT_SCHEDULERS)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """One ``sweep`` of the paper grid: its scenarios, policies and the
+    ``SimConfig`` fields but for the backend and device; ``twin`` runs it
+    again on the CPU (the fill's plain version) to compare."""
+
+    name: str
+    scenarios: Tuple[Scenario, ...]
+    policies: Tuple[Policy, ...]
+    sim: dict
+    twin: bool = True
+
+    def config(self, device: str) -> SimConfig:
+        return SimConfig(fluid_backend="kernel", device=device, **self.sim)
+
+
+def fig10_trace() -> List[TraceJobSpec]:
+    return generate_trace(MODEL_FLEET, **FIG10_TRACE_KW)[:FIG10_JOBS]
+
+
+def paper_grids(production: Sequence[TraceJobSpec]) -> List[Grid]:
+    """The grids in the order they run; a dynamic scenario's name carries
+    its amplitude, so one sweep holds every (snapshot, amplitude) cell."""
+    fig10 = fig10_trace()
+    return [
+        Grid("snapshots", tuple(snapshot_scenario(
+            sid, n_iterations=BENCH_ITERATIONS) for sid in GRID_SNAPSHOTS),
+            tuple(Policy(s) for s in PAPER_SCHEDULERS), BENCH_SIM),
+        Grid("ablations", tuple(snapshot_scenario(
+            sid, n_iterations=BENCH_ITERATIONS) for sid in SNAPSHOTS),
+            ABLATIONS, ABLATION_SIM),
+        Grid("dynamic", tuple(dataclasses.replace(
+            dynamic_scenario(sid, amplitude=amp, **DYNAMIC_SCENARIO_KW),
+            name=f"{sid}-a{amp:g}") for sid in DYNAMIC_SNAPSHOTS
+            for amp in DYNAMIC_AMPLITUDES), DYNAMIC_GRID_POLICIES,
+            DYNAMIC_SIM),
+        Grid("faults", tuple(fault_scenario(sid, **FAULT_KW)
+                             for sid in FAULT_SNAPSHOTS),
+             tuple(Policy(s) for s in FAULT_SCHEDULERS), FAULT_SIM),
+        Grid("fig10", (trace_scenario(fig10, open_ended=True,
+                                      name="gavel-trace"),),
+             tuple(Policy(s) for s in FIG10_SCHEDULERS), FIG10_SIM),
+        Grid("fig10_ideal", (trace_scenario(fig10, open_ended=False,
+                                            name="gavel-trace-capped"),),
+             (Policy("ideal"),), FIG10_SIM),
+        Grid("production", (dynamic_trace_scenario(production),),
+             PRODUCTION_POLICIES, dynamic_sim_kw(production), twin=False),
+    ]
+
+
+@contextlib.contextmanager
+def metered_runs(recs: Dict[str, "Recorder"],
+                 engines: List[fluid.FluidEngine]):
+    """Every ``experiment.run`` inside (``sweep`` runs each cell through
+    it) records, by (scenario, policy, device): its wall seconds, fill
+    launches, fill op calls and seconds (from ``recs[device]``, active
+    around the run), and the fluid engines it built (``engines`` from
+    :func:`audited_engines`)."""
+    meters: Dict[Tuple[str, str, str], dict] = {}
+    inner = experiment_mod.run
+
+    def metered(scenario, policy, sim_config=None):
+        rec = recs[sim_config.device]
+        launched = metronome_fill.launches
+        calls = rec.n_calls("progressive_fill")
+        fill_s, built = rec.seconds["progressive_fill"], len(engines)
+        t0 = time.perf_counter()
+        out = inner(scenario, policy, sim_config)
+        meters[(scenario.name, policy.name, sim_config.device)] = dict(
+            seconds=time.perf_counter() - t0,
+            fill_launches=metronome_fill.launches - launched,
+            fill_op_calls=rec.n_calls("progressive_fill") - calls,
+            fill_op_seconds=rec.seconds["progressive_fill"] - fill_s,
+            engines=engines[built:])
+        return out
+
+    experiment_mod.run = metered
+    try:
+        yield meters
+    finally:
+        experiment_mod.run = inner
+
+
+def _finite(x: float) -> Optional[float]:
+    """``x`` as a float, or None where it is NaN or infinite (a scenario
+    without jobs of a priority class has no mean)."""
+    x = float(x)
+    return x if math.isfinite(x) else None
+
+
+def cell_numbers(res: ExperimentResult) -> dict:
+    """A cell's end-to-end numbers, split by priority as the benches do."""
+    hi, lo = res.high_priority, res.low_priority
+    sim = res.sim
+    return dict(
+        hi_s_per_1000=_finite(res.mean_s_per_1000(hi)),
+        lo_s_per_1000=_finite(res.mean_s_per_1000(lo)),
+        hi_jct_ms=_finite(res.mean_jct_ms(hi)),
+        lo_jct_ms=_finite(res.mean_jct_ms(lo)),
+        mean_jct_ms=_finite(res.mean_jct_ms()),
+        total_completion_ms=_finite(sim.total_completion_ms),
+        avg_bw_utilization=_finite(sim.avg_bw_utilization),
+        readjustments=sim.readjustments,
+        reconfigurations=sim.reconfigurations,
+        accepted=len(res.accepted), pending=len(res.rejected))
+
+
+def _pct(a: float, b: float) -> Optional[float]:
+    """100 (1 - a / b), the benches' acceleration (None without a b)."""
+    return _finite(100.0 * (1.0 - a / b)) if b else None
+
+
+def _gap(a: float, b: float) -> Optional[float]:
+    """100 (a / b - 1), the benches' gap and ablation delta."""
+    return _finite(100.0 * (a / b - 1.0)) if b else None
+
+
+def grid_summary(got: Dict[str, SweepResult]) -> dict:
+    """The benches' derived numbers from the card's cells, printed, not
+    gated: Fig. 8's acceleration of Metronome against Default and Diktyo
+    per snapshot and priority, Table V's utilisation deltas (percentage
+    points), the high-priority gap to the ideal run, Tables VII's
+    ablation, the dynamic grid's JCT gain and reconfiguration saving, and
+    Fig. 10's total completion time."""
+    snaps = got["snapshots"]
+    fig8, table5, ideal_gap = {}, {}, {}
+    for sid in GRID_SNAPSHOTS:
+        me = snaps.get(sid, "metronome")
+        hi, lo = me.high_priority, me.low_priority
+        fig8[sid] = {f"{cls}_vs_{other}": _pct(
+            me.mean_s_per_1000(jobs), snaps.get(sid, other)
+            .mean_s_per_1000(jobs))
+            for other in ("default", "diktyo")
+            for cls, jobs in (("hi", hi), ("lo", lo)) if jobs}
+        table5[sid] = {other: _finite(100.0 * (
+            me.sim.avg_bw_utilization
+            - snaps.get(sid, other).sim.avg_bw_utilization))
+            for other in ("default", "diktyo", "exclusive", "ideal")}
+        if hi:
+            ideal_gap[sid] = _gap(
+                me.mean_s_per_1000(hi),
+                snaps.get(sid, "ideal").mean_s_per_1000(hi))
+    ablation = {}
+    for sid in SNAPSHOTS:
+        full = got["ablations"].get(sid, "full")
+        var = got["ablations"].get(sid, "wo_stage3")
+        ablation[sid] = dict(
+            lo_pct=_gap(var.mean_s_per_1000(full.low_priority),
+                        full.mean_s_per_1000(full.low_priority)),
+            hi_pct=_gap(var.mean_s_per_1000(full.high_priority),
+                        full.mean_s_per_1000(full.high_priority)),
+            gamma_delta_pp=_finite(100.0 * (var.sim.avg_bw_utilization
+                                            - full.sim.avg_bw_utilization)))
+    dynamic = {}
+    for scn in {c.scenario: None for c in got["dynamic"].cells}:
+        me = got["dynamic"].get(scn, "metronome")
+        noreconf = got["dynamic"].get(scn, "metronome_noreconf")
+        dynamic[scn] = dict(
+            jct_gain_vs_default_pct=_pct(
+                me.mean_jct_ms(),
+                got["dynamic"].get(scn, "default").mean_jct_ms()),
+            reconf_lo_jct_saving_pct=_pct(
+                me.mean_jct_ms(me.low_priority),
+                noreconf.mean_jct_ms(noreconf.low_priority)))
+    tct = {p: got["fig10"].get("gavel-trace", p).sim.total_completion_ms
+           for p in FIG10_SCHEDULERS}
+    tct["ideal"] = got["fig10_ideal"].get("gavel-trace-capped",
+                                          "ideal").sim.total_completion_ms
+    return dict(
+        fig8_accel_pct=fig8, tableV_gamma_delta_pp=table5,
+        hi_gap_to_ideal_pct=ideal_gap, tableVII_wo_stage3=ablation,
+        dynamic=dynamic, fig10_tct_s={p: _finite(v / 1e3)
+                                      for p, v in tct.items()},
+        fig10_tct_gain_vs_default_pct=_pct(tct["metronome"],
+                                           tct["default"]),
+        fig10_tct_gap_to_ideal_pct=_gap(tct["metronome"], tct["ideal"]),
+        fig10_load=cluster_load(fig10_trace(), FIG10_TRACE_KW["total_gpus"],
+                                FIG10_TRACE_KW["duration_s"]))
 
 
 def schedule_snapshot(sid: str, n_iterations: int = 100):
@@ -1044,6 +1285,106 @@ def phase_experiment(launches, rec: Recorder, n_jobs: int) -> dict:
                memo=dataclasses.asdict(eng.stats),
                corpus=eng.corpus_stats.as_dict())
     emit("experiment", **out)
+    return out
+
+
+def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
+    """The paper's evaluation grid (:func:`paper_grids`), each grid one
+    ``sweep`` on the card; each cell but the production trace's again on
+    the CPU, whose results JSON must equal the card's.  Every card cell's
+    sampled in-loop solves are held against ``fill_python``; the
+    production cells must also sample some, admit a job and end at a
+    finite time.  One line a cell, then the summary."""
+    t_phase = time.perf_counter()
+    production = generate_production_trace(MODEL_FLEET, n_jobs=n_jobs,
+                                           seed=7, **TRACE_KW)
+    got: Dict[str, SweepResult] = {}
+    seconds: Dict[str, dict] = {}
+    n_cells = n_twins = 0
+    twin_rec = Recorder(keep=0)
+    before = launches.get("metronome_fill", 0)
+    with audited_engines(stride=1) as engines, counted(launches), \
+            metered_runs({DEVICE: rec, "cpu": twin_rec}, engines) as meters:
+        for grid in paper_grids(production):
+            t0 = time.perf_counter()
+            with rec.active():
+                card = sweep(grid.scenarios, grid.policies,
+                             grid.config(DEVICE))
+                _sync()
+            seconds[grid.name] = dict(card=time.perf_counter() - t0)
+            check(not card.errors, f"paper_grid {grid.name}: cells failed: "
+                  + "\n".join(c.error for c in card.errors))
+            twin = None
+            if grid.twin:
+                t0 = time.perf_counter()
+                with twin_rec.active():
+                    twin = sweep(grid.scenarios, grid.policies,
+                                 grid.config("cpu"))
+                seconds[grid.name]["cpu"] = time.perf_counter() - t0
+                check(not twin.errors, f"paper_grid {grid.name}: CPU twin "
+                      "cells failed: "
+                      + "\n".join(c.error for c in twin.errors))
+            got[grid.name] = card
+            for cell in card.cells:
+                res = cell.result
+                meter = meters[(cell.scenario, cell.policy, DEVICE)]
+                solves = sum(len(e.samples) for e in meter["engines"])
+                err = max((audit_error(e) for e in meter["engines"]),
+                          default=0.0)
+                where = f"paper_grid {grid.name} ({cell.scenario}, " \
+                        f"{cell.policy})"
+                check(err <= ORACLE_TOL, f"{where}: in-loop fill vs "
+                      f"fill_python max abs err {err}")
+                check(meter["fill_op_calls"] == 0
+                      or meter["fill_launches"] > 0,
+                      f"{where}: {meter['fill_op_calls']} fill op calls "
+                      "launched no fill kernel")
+                out = dict(grid=grid.name, scenario=cell.scenario,
+                           policy=cell.policy, card_s=meter["seconds"])
+                if twin is not None:
+                    want = twin.get(cell.scenario, cell.policy)
+                    check(res.to_json_dict() == want.to_json_dict(),
+                          f"{where}: results JSON differs between the card "
+                          "and its CPU twin")
+                    out.update(cpu_s=meters[(cell.scenario, cell.policy,
+                                             "cpu")]["seconds"],
+                               json_equal_to_cpu_twin=True)
+                    n_twins += 1
+                else:
+                    check(solves > 0, f"{where}: no in-loop solve sampled")
+                    check(math.isfinite(res.sim.total_completion_ms)
+                          and res.sim.total_completion_ms > 0,
+                          f"{where}: total completion not finite")
+                    check(len(res.accepted) > 0, f"{where}: no job admitted")
+                out.update(
+                    fill_launches=meter["fill_launches"],
+                    fill_op_calls=meter["fill_op_calls"],
+                    fill_op_us_per_call=meter["fill_op_seconds"] * 1e6
+                    / max(1, meter["fill_op_calls"]),
+                    fill_op_share=meter["fill_op_seconds"]
+                    / meter["seconds"],
+                    audited_solves=solves, max_abs_err_vs_fill_python=err,
+                    **cell_numbers(res))
+                if grid.name == "production":
+                    out["cut"] = (f"{n_jobs} of the reference bench's "
+                                  "10,000 jobs, for the run's time limit")
+                emit("paper_grid", **out)
+                n_cells += 1
+    fill_launches = launches["metronome_fill"] - before
+    check(fill_launches > 0, "paper_grid launched no fill")
+    # the cell with the most fill launches: a snapshot cell's two to five
+    # can all fall among the records a late trace loses
+    share = device_busy_share(
+        lambda: run(dynamic_trace_scenario(production), Policy("diktyo"),
+                    SimConfig(fluid_backend="kernel", device=DEVICE,
+                              **dynamic_sim_kw(production))),
+        "profiled run of the production cell (dynamic-trace, diktyo)")
+    out = dict(cells=n_cells, cells_json_equal_to_cpu_twin=n_twins,
+               seconds=time.perf_counter() - t_phase, grid_seconds=seconds,
+               fill_launches=fill_launches,
+               fill_op_calls=rec.n_calls("progressive_fill"),
+               device_busy_production_cell=share, **grid_summary(got))
+    emit("paper_grid_summary", **out)
     return out
 
 
@@ -2728,13 +3069,13 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
     return base, bank_a, bank_b, caps
 
 
-def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
-                  recs: Dict[str, Recorder]) -> dict:
+def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
+                  planner: Recorder, recs: Dict[str, Recorder]) -> dict:
     cases: Dict[str, dict] = {}
     # the main path's fill launches all take the one-word route masks
     links = {rec_name: sorted({shape[1][2] for shape in rec.counts[
-        "progressive_fill"]}) for rec_name, rec in (("corpus", corpus),
-                                                    ("loop", loop))}
+        "progressive_fill"]}) for rec_name, rec in (
+            ("corpus", corpus), ("loop", loop), ("paper_grid", grid))}
     check(all(l <= 32 for ls in links.values() for l in ls),
           f"a main-path fill launch has more than 32 links: {links}")
     cases["fill_links_on_main_path"] = dict(links=links)
@@ -2742,6 +3083,9 @@ def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
     cases["fill_trace_corpus"] = _fill_case(corpus.inputs("progressive_fill"))
     _, n, args = loop.most_common("progressive_fill")
     cases["fill_event_loop"] = dict(_fill_case([args]),
+                                    calls_of_this_shape=n)
+    _, n, args = grid.most_common("progressive_fill")
+    cases["fill_paper_grid"] = dict(_fill_case([args]),
                                     calls_of_this_shape=n)
     # padded neutrality: zero-demand flows, zero-route unit-capacity links
     d = np.array([[0.0, 10.0, 0.0, 4.0] + [0.0] * 4])
@@ -2755,7 +3099,7 @@ def phase_kernels(corpus: Recorder, loop: Recorder, planner: Recorder,
     check(abs(got[0, 1] - 4.0) <= FILL_TOL and abs(got[0, 3] - 4.0)
           <= FILL_TOL, f"fill kernel: padded case rates {got[0, :4]}")
     cases["fill_padding"] = dict(rates=[float(x) for x in got[0, :4]])
-    for name in ("fill_trace_corpus", "fill_event_loop"):
+    for name in ("fill_trace_corpus", "fill_event_loop", "fill_paper_grid"):
         check(cases[name]["max_abs_err"] == 0.0,
               f"{name}: kernel vs plain {cases[name]['max_abs_err']}")
 
@@ -3297,12 +3641,14 @@ def main(argv: Sequence[str]) -> int:
     ptxas = phase_build()
     launches: Dict[str, int] = {}
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
+    grid = Recorder()
     recs = {name: Recorder() for name in (
         "serve", "train", "serve_dense", "train_dense", "serve_moe",
         "train_moe", "serve_encdec", "train_small", "train_sharded",
         "train_sharded_griffin", "serve_sharded", "elastic")}
     phase_trace_corpus(launches, corpus)
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
+    phase_paper_grid(launches, grid, EXPERIMENT_JOBS)
     phase_planner(launches, planner)
     phase_serve(launches, recs["serve"])
     phase_train(launches, recs["train"])
@@ -3326,7 +3672,7 @@ def main(argv: Sequence[str]) -> int:
                         recs["train_sharded_griffin"])
     phase_serve_sharded(launches, recs["serve_sharded"])
     phase_elastic(launches, recs["elastic"])
-    cases = phase_kernels(corpus, loop, planner, recs)
+    cases = phase_kernels(corpus, loop, grid, planner, recs)
     print(json.dumps(_digits(kernel_summary(launches, cases, ptxas))),
           flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
