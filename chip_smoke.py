@@ -30,6 +30,21 @@ JSON line with its numbers and seconds:
                 twin).  Every card cell's in-loop solves held against
                 ``fill_python``; one line a cell, and a summary of the
                 benches' derived numbers (printed, not gated)
+  paper_figures the rest of the reference's evaluation the same way, 72
+                cells, each twinned on the CPU: Fig. 11 (S1 with and
+                without a mid-run 1.4x duty change on every job), Fig. 12
+                (S4, S5 with the congested node's latency at 10, 40, 80
+                ms), each under Metronome, Default and Diktyo; Fig. 14
+                (S1-S3 under the controller's A_T x O_T thresholds);
+                Fig. 15 (S3 at six WideResNet period gaps); Table VI
+                (S1-S3, 150 s and 600 s windows); J1 joint against
+                per-link rotation; the leaf-spine fabric at 1:1, 2:1,
+                4:1 and F2, F4.  Then J1's worst planning score, the F4
+                planner's per-link loop against ``joint_solve`` with the
+                score kernel (host µs a call), and Fig. 16's placement
+                and recalculation times (host time, no kernel); one line
+                a cell, one for Fig. 16 and a summary under the benches'
+                names (printed, not gated)
   planner       J1 and F4 scheduled, then ``rotation.joint_solve`` and a
                 candidate batch through ``joint_solve_batch`` with
                 ``backend='kernel'`` held against ``backend='numpy'``
@@ -210,8 +225,11 @@ from repro_torch.configs.metronome_testbed import (  # noqa: E402
     snapshot_scenario, trace_scenario)
 from repro_torch.core import events as events_mod  # noqa: E402
 from repro_torch.core import experiment as experiment_mod  # noqa: E402
-from repro_torch.core import fluid, rotation  # noqa: E402
-from repro_torch.core.cluster import make_fabric_cluster  # noqa: E402
+from repro_torch.core import fluid, geometry, rotation, scoring  # noqa: E402
+from repro_torch.core.baselines import (DefaultPlugin,  # noqa: E402
+                                        DiktyoPlugin)
+from repro_torch.core.cluster import (Cluster, Node, Resources,  # noqa: E402
+                                      make_fabric_cluster)
 from repro_torch.core.contention import LinkView  # noqa: E402
 from repro_torch.core.controller import StopAndWaitController  # noqa: E402
 from repro_torch.core.experiment import (Policy, Scenario,  # noqa: E402
@@ -228,7 +246,7 @@ from repro_torch.core.trace import (TraceJobSpec,  # noqa: E402
                                     generate_trace,
                                     trace_departure_events, trace_job_name,
                                     trace_to_jobs)
-from repro_torch.core.workload import Workload  # noqa: E402
+from repro_torch.core.workload import Workload, make_job  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _bwd_head_split, _flash_attention_bwd, flash_attention_fwd)
@@ -669,20 +687,45 @@ FIG10_SIM = dict(duration_ms=1_200_000, seed=0, jitter_std=0.01)
 PRODUCTION_POLICIES = tuple(Policy(s) for s in FAULT_SCHEDULERS)
 
 
+@contextlib.contextmanager
+def fleet_period(model: str, period_ms: float):
+    """``MODEL_FLEET[model]``'s period set to ``period_ms`` inside (the
+    entry itself restored after, as ``bench_thresholds``' Fig. 15 does)."""
+    saved = MODEL_FLEET[model]
+    MODEL_FLEET[model] = dict(saved, period_ms=period_ms)
+    try:
+        yield
+    finally:
+        MODEL_FLEET[model] = saved
+
+
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """One ``sweep`` of the paper grid: its scenarios, policies and the
-    ``SimConfig`` fields but for the backend and device; ``twin`` runs it
-    again on the CPU (the fill's plain version) to compare."""
+    ``SimConfig`` fields but for the backend and device (None where each
+    scenario carries its own ``SimConfig``, as Table VI's do); ``twin``
+    runs it again on the CPU (the fill's plain version) to compare;
+    ``cut`` says how a cell was cut from its source."""
 
     name: str
     scenarios: Tuple[Scenario, ...]
     policies: Tuple[Policy, ...]
-    sim: dict
+    sim: Optional[dict]
     twin: bool = True
+    cut: Optional[str] = None
 
-    def config(self, device: str) -> SimConfig:
-        return SimConfig(fluid_backend="kernel", device=device, **self.sim)
+    def run(self, device: str) -> SweepResult:
+        """The grid's sweep with the fill's kernel on ``device``, the one
+        place a grid's backend and device are set: in ``sweep``'s config,
+        or in each scenario's own ``SimConfig`` where ``sim`` is None, so
+        the CPU twin of Table VI never runs on the card."""
+        if self.sim is not None:
+            return sweep(self.scenarios, self.policies, SimConfig(
+                fluid_backend="kernel", device=device, **self.sim))
+        return sweep(tuple(dataclasses.replace(
+            s, sim_config=dataclasses.replace(
+                s.sim_config, fluid_backend="kernel", device=device))
+            for s in self.scenarios), self.policies, None)
 
 
 def fig10_trace() -> List[TraceJobSpec]:
@@ -715,7 +758,9 @@ def paper_grids(production: Sequence[TraceJobSpec]) -> List[Grid]:
                                             name="gavel-trace-capped"),),
              (Policy("ideal"),), FIG10_SIM),
         Grid("production", (dynamic_trace_scenario(production),),
-             PRODUCTION_POLICIES, dynamic_sim_kw(production), twin=False),
+             PRODUCTION_POLICIES, dynamic_sim_kw(production), twin=False,
+             cut=f"{len(production)} of the reference bench's 10,000 "
+                 "jobs, for the run's time limit"),
     ]
 
 
@@ -731,13 +776,16 @@ def metered_runs(recs: Dict[str, "Recorder"],
     inner = experiment_mod.run
 
     def metered(scenario, policy, sim_config=None):
-        rec = recs[sim_config.device]
+        device = (sim_config or scenario.sim_config).device
+        key = (scenario.name, policy.name, device)
+        check(key not in meters, f"two cells share the meter key {key}")
+        rec = recs[device]
         launched = metronome_fill.launches
         calls = rec.n_calls("progressive_fill")
         fill_s, built = rec.seconds["progressive_fill"], len(engines)
         t0 = time.perf_counter()
         out = inner(scenario, policy, sim_config)
-        meters[(scenario.name, policy.name, sim_config.device)] = dict(
+        meters[key] = dict(
             seconds=time.perf_counter() - t0,
             fill_launches=metronome_fill.launches - launched,
             fill_op_calls=rec.n_calls("progressive_fill") - calls,
@@ -849,15 +897,357 @@ def grid_summary(got: Dict[str, SweepResult]) -> dict:
                                 FIG10_TRACE_KW["duration_s"]))
 
 
-def schedule_snapshot(sid: str, n_iterations: int = 100):
-    """``sid`` scheduled by the Metronome plugin with the joint planner."""
+# ---------------------------------------------------------------------------
+# the rest of the paper's evaluation: the settings of the reference's
+# bench_param_variation (Figs. 11, 12), bench_thresholds (Figs. 14, 15),
+# bench_persistence (Table VI), bench_rotation (J1, the F4 planner),
+# bench_fabric and bench_sched_time (Fig. 16), copied because they import
+# the JAX package; tests/test_torch_paper_figures.py holds each to the
+# bench's own value
+# ---------------------------------------------------------------------------
+
+FIGURE_SCHEDULERS = ("metronome", "default", "diktyo")
+FIG11_LABELS = (("orig", False), ("halved_batch", True))
+FIG11_CHANGE_MS = 30_000.0  # every S1 job's duty x 1.4 from here
+FIG11_DUTY_MULT = 1.4
+FIG12_SNAPSHOTS = ("S4", "S5")
+FIG12_TAUS = (10.0, 40.0, 80.0)
+FIG12_ITERATIONS = 300
+FIG12_NODE = "worker-a30-2"  # the congested node whose latency is tau
+THRESHOLD_SNAPSHOTS = ("S1", "S2", "S3")
+THRESHOLD_O_T = (3, 5)
+THRESHOLD_A_T = (1.05, 1.10, 1.15)
+THRESHOLD_SIM = dict(BENCH_SIM, jitter_std=0.02)
+FIG15_GAPS = (35.0, 30.0, 20.0, 10.0, 5.0, 0.0)
+FIG15_POLICY = (1.10, 5)  # (a_t, o_t)
+FIG15_MODEL, FIG15_PAIR = "FT-WideResNet101", "FT-VGG19-S3"
+PERSISTENCE_SNAPSHOTS = ("S1", "S2", "S3")
+PERSISTENCE_WINDOWS = (("short", 150_000.0, 400), ("long", 600_000.0, 5000))
+PERSISTENCE_SIM = dict(seed=3, jitter_std=0.01)
+ROTATION_POLICIES = (Policy("metronome", label="joint"),
+                     Policy("metronome", rotation_joint=False,
+                            label="legacy"))
+ROTATION_ITERATIONS = 300
+ROTATION_SIM = dict(BENCH_SIM, jitter_std=0.02)
+PLANNER_REPS = 20
+FABRIC_RATIOS = (1.0, 2.0, 4.0)
+FABRIC_LAYOUT = dict(n_leaves=2, hosts_per_leaf=2, bw_gbps=25.0)
+FABRIC_ITERATIONS = 300
+FABRIC_SIM = dict(duration_ms=120_000.0, seed=3, jitter_std=0.01)
+FABRIC_SCHEDULERS = ("metronome", "default", "diktyo", "ideal")
+FABRIC_SNAPSHOT_SCHEDULERS = ("metronome", "default")
+SCHED_NODES = 4
+SCHED_NODE = dict(cpu=64, mem=512, gpu=8)
+SCHED_BW_GBPS = 25.0
+SCHED_PERIODS = (96.0, 90.0, 120.0, 245.0, 80.0)  # bg-0 .. bg-4
+SCHED_JOB = dict(n_tasks=2, duty=0.45, bw_gbps=20.0)
+SCHED_NEW_PERIOD = 96.0
+SCHED_REPS = 5
+
+
+def threshold_policy(a_t: float, o_t: int) -> Policy:
+    return Policy("metronome").with_options(a_t=a_t, o_t=o_t)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchChangeBuild:
+    """S1; with ``halved``, every job's duty x ``FIG11_DUTY_MULT`` from
+    ``FIG11_CHANGE_MS`` on (Fig. 11's batch-size halving, typed events)."""
+
+    halved: bool
+    n_iterations: int = BENCH_ITERATIONS
+
+    def __call__(self):
+        cluster, wls, bg = make_snapshot("S1",
+                                         n_iterations=self.n_iterations)
+        changes = [events_mod.TrafficChange(FIG11_CHANGE_MS, j.name,
+                                            FIG11_DUTY_MULT)
+                   for wl in wls for j in wl.jobs] if self.halved else []
+        return cluster, wls, bg, changes
+
+
+@dataclasses.dataclass(frozen=True)
+class TauBuild:
+    """S4 or S5 with ``FIG12_NODE``'s latency to every other node set to
+    ``tau`` ms (Fig. 12)."""
+
+    sid: str
+    tau: float
+    n_iterations: int = FIG12_ITERATIONS
+
+    def __call__(self):
+        cluster, wls, bg = make_snapshot(self.sid,
+                                         n_iterations=self.n_iterations)
+        for other in cluster.node_names:
+            if other != FIG12_NODE:
+                cluster.set_latency(FIG12_NODE, other, self.tau)
+        return cluster, wls, bg
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricRatioBuild:
+    """F2's workloads on a 2-leaf x 2-host fabric whose uplinks are
+    oversubscribed ``ratio``:1 (``bench_fabric``)."""
+
+    ratio: float
+    n_iterations: int = FABRIC_ITERATIONS
+
+    def __call__(self):
+        cluster = make_fabric_cluster(**FABRIC_LAYOUT,
+                                      oversubscription=self.ratio)
+        _, wls, _ = make_snapshot("F2", n_iterations=self.n_iterations)
+        return cluster, wls
+
+
+def fig15_period(gap: float) -> float:
+    """Fig. 15's WideResNet period: half its pair's, less ``gap`` ms."""
+    return MODEL_FLEET[FIG15_PAIR]["period_ms"] / 2 - gap
+
+
+@dataclasses.dataclass(frozen=True)
+class GapBuild:
+    """S3 with ``FIG15_MODEL``'s period at :func:`fig15_period` (Fig. 15).
+    Only a snapshot's build reads the fleet, so the entry is set while S3
+    is built and restored before the cell runs."""
+
+    gap: float
+    n_iterations: int = BENCH_ITERATIONS
+
+    def __call__(self):
+        with fleet_period(FIG15_MODEL, fig15_period(self.gap)):
+            return make_snapshot("S3", n_iterations=self.n_iterations)
+
+
+def paper_figure_grids() -> List[Grid]:
+    """The grids of Figs. 11, 12, 14, 15, Table VI, J1 and the fabric
+    sweep in the order they run; a scenario's name carries its variant
+    (label, tau, gap, window, ratio), so every cell has a key of its own
+    and one sweep holds a figure's cells."""
+    schedulers = tuple(Policy(s) for s in FIGURE_SCHEDULERS)
+    return [
+        Grid("fig11", tuple(Scenario(f"S1-{label}", BatchChangeBuild(halved))
+                            for label, halved in FIG11_LABELS),
+             schedulers, BENCH_SIM),
+        Grid("fig12", tuple(Scenario(f"{sid}-tau{int(tau)}",
+                                     TauBuild(sid, tau))
+                            for sid in FIG12_SNAPSHOTS
+                            for tau in FIG12_TAUS),
+             schedulers, BENCH_SIM),
+        Grid("fig14", tuple(snapshot_scenario(
+            sid, n_iterations=BENCH_ITERATIONS)
+            for sid in THRESHOLD_SNAPSHOTS),
+            tuple(threshold_policy(a_t, o_t) for o_t in THRESHOLD_O_T
+                  for a_t in THRESHOLD_A_T), THRESHOLD_SIM),
+        Grid("fig15", tuple(Scenario(f"S3-gap{gap:g}", GapBuild(gap))
+                            for gap in FIG15_GAPS),
+             (threshold_policy(*FIG15_POLICY),), THRESHOLD_SIM),
+        Grid("tableVI", tuple(dataclasses.replace(snapshot_scenario(
+            # Grid.run sets each cell's backend and device; "cpu" only
+            # lets the config resolve where there is no card
+            sid, n_iterations=iters, sim_config=SimConfig(
+                duration_ms=dur, device="cpu", **PERSISTENCE_SIM)),
+            name=f"{sid}-{label}")
+            for sid in PERSISTENCE_SNAPSHOTS
+            for label, dur, iters in PERSISTENCE_WINDOWS),
+            (Policy("metronome"),), None),
+        Grid("J1", (snapshot_scenario("J1",
+                                      n_iterations=ROTATION_ITERATIONS),),
+             ROTATION_POLICIES, ROTATION_SIM),
+        Grid("fabric", tuple(Scenario(f"F2@{ratio:g}to1",
+                                      FabricRatioBuild(ratio))
+                             for ratio in FABRIC_RATIOS),
+             tuple(Policy(s) for s in FABRIC_SCHEDULERS), FABRIC_SIM),
+        Grid("fabric_snapshots", tuple(snapshot_scenario(
+            sid, n_iterations=FABRIC_ITERATIONS)
+            for sid in FABRIC_SNAPSHOTS),
+            tuple(Policy(s) for s in FABRIC_SNAPSHOT_SCHEDULERS),
+            FABRIC_SIM),
+    ]
+
+
+def _accel(sw: SweepResult, scn: str, other: str) -> Optional[float]:
+    """Figs. 11 and 12's acceleration: 100 (1 - Metronome's mean time
+    per 1000 iterations over ``other``'s), over the jobs both report."""
+    me = sw.get(scn, "metronome").sim.time_per_1000_iters_s
+    o = sw.get(scn, other).sim.time_per_1000_iters_s
+    both = sorted(set(me) & set(o))
+    return _pct(float(np.mean([me[j] for j in both])),
+                float(np.mean([o[j] for j in both])))
+
+
+def worst_planning_score(cluster, registry, ctrl) -> float:
+    """The worst per-link Eq. 18 score of the controller's final global
+    offsets under the planning demand view (100: every link feasible)."""
+    view = LinkView.from_registry(cluster, registry)
+    worst = 100.0
+    for lid, st in ctrl.links.items():
+        sch = st.scheme
+        duties, _ = view.recalc_traffic(lid, sch.jobs, sch.muls, sch.base_ms)
+        pats = geometry.pattern_matrix(sch.muls, duties, ctrl.di_pre)
+        shifts = np.array([
+            geometry.delay_to_shift_slots(ctrl.job_offset_ms(j), sch.base_ms,
+                                          ctrl.di_pre)
+            for j in sch.jobs])
+        groups = view.link_groups(lid)
+        bws = [sum(t.traffic.bw_gbps for t in groups.get(j, []))
+               for j in sch.jobs]
+        worst = min(worst, float(scoring.score_combos(
+            pats, np.asarray(bws), cluster.link_alloc(lid),
+            shifts[None, :])[0]))
+    return worst
+
+
+def _sched_cluster() -> Cluster:
+    return Cluster([Node(f"n{i}", Resources(**SCHED_NODE),
+                         bw_gbps=SCHED_BW_GBPS) for i in range(SCHED_NODES)])
+
+
+SCHED_PLUGINS = {"metronome": lambda c: MetronomePlugin(controller=c),
+                 "default": lambda c: DefaultPlugin(),
+                 "diktyo": lambda c: DiktyoPlugin()}
+
+
+def _sched_framework(plugin: str, n_jobs: int):
+    """Fig. 16's cluster with ``n_jobs`` of its background jobs placed."""
+    cluster, ctrl = _sched_cluster(), StopAndWaitController()
+    fw = SchedulingFramework(cluster, SCHED_PLUGINS[plugin](ctrl))
+    for i in range(n_jobs):
+        j = make_job(f"bg-{i}", period_ms=SCHED_PERIODS[i], **SCHED_JOB)
+        fw.schedule_workload(Workload(name=j.name, jobs=[j]))
+    return cluster, ctrl, fw
+
+
+def sched_placement(plugin: str, n_existing: int) -> dict:
+    """Fig. 16's placement row: a new job placed and evicted
+    ``SCHED_REPS`` times beside ``n_existing`` jobs, host µs a placement
+    and ms a pod, and the nodes the first placement chose."""
+    _, _, fw = _sched_framework(plugin, n_existing)
+    new = make_job("new", period_ms=SCHED_NEW_PERIOD, **SCHED_JOB)
+    nodes = None
+    t0 = time.perf_counter()
+    for r in range(SCHED_REPS):
+        for t in new.tasks:
+            t.node = None
+        fw.schedule_workload(Workload(name=f"new-{r}", jobs=[new]))
+        if nodes is None:
+            nodes = [t.node for t in new.tasks]
+        fw.evict_job(new)
+    us = (time.perf_counter() - t0) / SCHED_REPS * 1e6
+    return dict(plugin=plugin, existing_jobs=n_existing, host_us=us,
+                ms_per_pod=us / SCHED_JOB["n_tasks"] / 1e3, nodes=nodes)
+
+
+def sched_recalculation(n_jobs: int) -> dict:
+    """Fig. 16's recalculation row: the controller's offline
+    recalculation over every link with ``n_jobs`` jobs placed, host s,
+    and the global offsets it gives."""
+    cluster, ctrl, fw = _sched_framework("metronome", n_jobs)
+    ctrl.pending_recalc = list(ctrl.links.keys())
+    t0 = time.perf_counter()
+    ctrl.run_offline_recalculation(fw.registry, cluster)
+    host_s = time.perf_counter() - t0
+    return dict(jobs=n_jobs, host_s=host_s,
+                offsets_ms={f"bg-{i}": ctrl.job_offset_ms(f"bg-{i}")
+                            for i in range(n_jobs)})
+
+
+def figure_summary(got: Dict[str, SweepResult]) -> dict:
+    """The benches' derived numbers from the card's cells under their
+    ``emit`` names, printed, not gated: Figs. 11 and 12's acceleration,
+    Fig. 14's low-priority increase over the best thresholds and
+    readjustments, Fig. 15's times per 1000 iterations, Table VI's short
+    and long windows, J1's low-priority JCT saving, the fabric sweep's
+    JCT gain over Default and uplink utilisation."""
+    fig11 = {}
+    for label, _ in FIG11_LABELS:
+        scn = f"S1-{label}"
+        me = got["fig11"].get(scn, "metronome")
+        for other in FIGURE_SCHEDULERS[1:]:
+            fig11[f"fig11_{label}_accel_vs_{other}"] = dict(
+                accel_pct=_accel(got["fig11"], scn, other),
+                gamma_me=_finite(me.sim.avg_bw_utilization),
+                gamma_other=_finite(got["fig11"].get(scn, other)
+                                    .sim.avg_bw_utilization))
+    fig12 = {f"fig12_{sid}_tau{int(tau)}_vs_{other}": dict(
+        accel_pct=_accel(got["fig12"], f"{sid}-tau{int(tau)}", other))
+        for sid in FIG12_SNAPSHOTS for tau in FIG12_TAUS
+        for other in FIGURE_SCHEDULERS[1:]}
+    fig14 = {}
+    for sid in THRESHOLD_SNAPSHOTS:
+        rows = []
+        for o_t in THRESHOLD_O_T:
+            for a_t in THRESHOLD_A_T:
+                res = got["fig14"].get(sid, threshold_policy(a_t, o_t).name)
+                rows.append((a_t, o_t, res.mean_s_per_1000(res.low_priority),
+                             res.sim.readjustments))
+        best = min(r[2] for r in rows)
+        for a_t, o_t, lo_t, readj in rows:
+            fig14[f"fig14_{sid}_AT{int(a_t * 100)}_OT{o_t}"] = dict(
+                lo_increase_pct=_gap(lo_t, best), readj=readj)
+    fig15 = {}
+    for gap in FIG15_GAPS:
+        res = got["fig15"].get(f"S3-gap{gap:g}",
+                               threshold_policy(*FIG15_POLICY).name)
+        fig15[f"fig15_gap{int(gap)}ms"] = dict(
+            lo_s_per_1000=_finite(res.mean_s_per_1000(res.low_priority)),
+            hi_s_per_1000=_finite(res.mean_s_per_1000(res.high_priority)))
+    table6 = {}
+    for sid in PERSISTENCE_SNAPSHOTS:
+        short = got["tableVI"].get(f"{sid}-short", "metronome")
+        long_ = got["tableVI"].get(f"{sid}-long", "metronome")
+        hi, lo = short.high_priority, short.low_priority
+        table6[f"tableVI_{sid}"] = dict(
+            lo_short=_finite(short.mean_s_per_1000(lo)),
+            lo_long=_finite(long_.mean_s_per_1000(lo)),
+            hi_short=_finite(short.mean_s_per_1000(hi)),
+            hi_long=_finite(long_.mean_s_per_1000(hi)))
+    lo_jct = {p.name: got["J1"].get("J1", p.name).sim.finish_times_ms.get(
+        "j1-local", float("nan")) for p in ROTATION_POLICIES}
+    fabric = {}
+    for ratio in FABRIC_RATIOS:
+        scn = f"F2@{ratio:g}to1"
+        for sched in FABRIC_SCHEDULERS:
+            r = got["fabric"].get(scn, sched)
+            iters = [v for v in r.sim.time_per_1000_iters_s.values()
+                     if not math.isnan(v)]
+            fabric[f"fabric_{ratio:g}to1_{sched}"] = dict(
+                avg_jct_s=_finite(r.mean_jct_ms() / 1e3),
+                s_per_1000=_finite(np.mean(iters)) if iters else None,
+                uplink_util=max(r.sim.uplink_utilization.values(),
+                                default=0.0))
+        fabric[f"fabric_{ratio:g}to1_metronome_gain"] = dict(
+            jct_gain_vs_default_pct=_pct(
+                got["fabric"].get(scn, "metronome").mean_jct_ms(),
+                got["fabric"].get(scn, "default").mean_jct_ms()))
+    for sid in FABRIC_SNAPSHOTS:
+        for sched in FABRIC_SNAPSHOT_SCHEDULERS:
+            r = got["fabric_snapshots"].get(sid, sched)
+            fabric[f"fabric_{sid}_{sched}"] = dict(
+                avg_jct_s=_finite(r.mean_jct_ms() / 1e3),
+                uplink_util=max(r.sim.uplink_utilization.values(),
+                                default=0.0),
+                readj=r.sim.readjustments)
+    return dict(
+        fig11=fig11, fig12=fig12, fig14=fig14, fig15=fig15, tableVI=table6,
+        rotation_J1_joint_vs_legacy=dict(lo_jct_saving_pct=_pct(
+            lo_jct["joint"], lo_jct["legacy"])),
+        rotation_J1_tct_s={p.name: _finite(got["J1"].get(
+            "J1", p.name).sim.total_completion_ms / 1e3)
+            for p in ROTATION_POLICIES},
+        fabric=fabric)
+
+
+def schedule_snapshot(sid: str, n_iterations: int = 100,
+                      joint: bool = True):
+    """``sid`` scheduled by the Metronome plugin with the joint planner
+    (or the per-link one): the cluster, framework and controller."""
     cluster, wls, _ = make_snapshot(sid, n_iterations=n_iterations)
-    ctrl = StopAndWaitController(joint=True)
+    ctrl = StopAndWaitController(joint=joint)
     fw = SchedulingFramework(cluster, MetronomePlugin(controller=ctrl,
-                                                      joint=True))
+                                                      joint=joint))
     for wl in wls:
         fw.schedule_workload(wl)
-    return cluster, fw
+    return cluster, fw, ctrl
 
 
 def planner_links(sid: str, view: LinkView, registry) -> List[str]:
@@ -941,6 +1331,13 @@ class Recorder:
     def most_common(self, name: str) -> Tuple[tuple, int, list]:
         shape, n = max(self.counts[name].items(), key=lambda kv: kv[1])
         return shape, n, self.calls[name][shape][0]
+
+
+def score_counts(launches: Dict[str, int]) -> Dict[str, int]:
+    """The score wrappers' launches recorded in ``launches`` so far: a
+    phase takes them before and after its runs and reads the difference,
+    since ``launches`` sums every phase's."""
+    return {w.__name__: launches.get(w.__name__, 0) for w in SCORE_WRAPPERS}
 
 
 @contextlib.contextmanager
@@ -1288,40 +1685,39 @@ def phase_experiment(launches, rec: Recorder, n_jobs: int) -> dict:
     return out
 
 
-def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
-    """The paper's evaluation grid (:func:`paper_grids`), each grid one
-    ``sweep`` on the card; each cell but the production trace's again on
-    the CPU, whose results JSON must equal the card's.  Every card cell's
-    sampled in-loop solves are held against ``fill_python``; the
-    production cells must also sample some, admit a job and end at a
-    finite time.  One line a cell, then the summary."""
-    t_phase = time.perf_counter()
-    production = generate_production_trace(MODEL_FLEET, n_jobs=n_jobs,
-                                           seed=7, **TRACE_KW)
+def run_grids(phase: str, grids: Sequence[Grid], launches,
+              rec: Recorder) -> Tuple[Dict[str, SweepResult], dict]:
+    """Each grid one ``sweep`` on the card and, where it has a twin, again
+    on the CPU, whose results JSON must equal the card's.  Every card
+    cell's in-loop solves are held against ``fill_python``; a cell without
+    a twin must also sample some, admit a job and end at a finite time.
+    One ``phase`` line a cell.  Returns the card's sweeps by grid and the
+    totals: cells, twinned cells, audited solves, their largest error, the
+    fill's launches and op calls, and each grid's seconds."""
     got: Dict[str, SweepResult] = {}
     seconds: Dict[str, dict] = {}
-    n_cells = n_twins = 0
+    totals = dict(cells=0, cells_json_equal_to_cpu_twin=0, audited_solves=0,
+                  max_abs_err_vs_fill_python=0.0)
     twin_rec = Recorder(keep=0)
     before = launches.get("metronome_fill", 0)
+    calls = rec.n_calls("progressive_fill")
     with audited_engines(stride=1) as engines, counted(launches), \
             metered_runs({DEVICE: rec, "cpu": twin_rec}, engines) as meters:
-        for grid in paper_grids(production):
+        for grid in grids:
             t0 = time.perf_counter()
             with rec.active():
-                card = sweep(grid.scenarios, grid.policies,
-                             grid.config(DEVICE))
+                card = grid.run(DEVICE)
                 _sync()
             seconds[grid.name] = dict(card=time.perf_counter() - t0)
-            check(not card.errors, f"paper_grid {grid.name}: cells failed: "
+            check(not card.errors, f"{phase} {grid.name}: cells failed: "
                   + "\n".join(c.error for c in card.errors))
             twin = None
             if grid.twin:
                 t0 = time.perf_counter()
                 with twin_rec.active():
-                    twin = sweep(grid.scenarios, grid.policies,
-                                 grid.config("cpu"))
+                    twin = grid.run("cpu")
                 seconds[grid.name]["cpu"] = time.perf_counter() - t0
-                check(not twin.errors, f"paper_grid {grid.name}: CPU twin "
+                check(not twin.errors, f"{phase} {grid.name}: CPU twin "
                       "cells failed: "
                       + "\n".join(c.error for c in twin.errors))
             got[grid.name] = card
@@ -1331,7 +1727,7 @@ def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
                 solves = sum(len(e.samples) for e in meter["engines"])
                 err = max((audit_error(e) for e in meter["engines"]),
                           default=0.0)
-                where = f"paper_grid {grid.name} ({cell.scenario}, " \
+                where = f"{phase} {grid.name} ({cell.scenario}, " \
                         f"{cell.policy})"
                 check(err <= ORACLE_TOL, f"{where}: in-loop fill vs "
                       f"fill_python max abs err {err}")
@@ -1349,7 +1745,7 @@ def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
                     out.update(cpu_s=meters[(cell.scenario, cell.policy,
                                              "cpu")]["seconds"],
                                json_equal_to_cpu_twin=True)
-                    n_twins += 1
+                    totals["cells_json_equal_to_cpu_twin"] += 1
                 else:
                     check(solves > 0, f"{where}: no in-loop solve sampled")
                     check(math.isfinite(res.sim.total_completion_ms)
@@ -1365,13 +1761,29 @@ def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
                     / meter["seconds"],
                     audited_solves=solves, max_abs_err_vs_fill_python=err,
                     **cell_numbers(res))
-                if grid.name == "production":
-                    out["cut"] = (f"{n_jobs} of the reference bench's "
-                                  "10,000 jobs, for the run's time limit")
-                emit("paper_grid", **out)
-                n_cells += 1
-    fill_launches = launches["metronome_fill"] - before
-    check(fill_launches > 0, "paper_grid launched no fill")
+                if grid.cut:
+                    out["cut"] = grid.cut
+                emit(phase, **out)
+                totals["cells"] += 1
+                totals["audited_solves"] += solves
+                totals["max_abs_err_vs_fill_python"] = max(
+                    totals["max_abs_err_vs_fill_python"], err)
+    totals.update(fill_launches=launches["metronome_fill"] - before,
+                  fill_op_calls=rec.n_calls("progressive_fill") - calls,
+                  grid_seconds=seconds)
+    check(totals["fill_launches"] > 0, f"{phase} launched no fill")
+    return got, totals
+
+
+def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
+    """The paper's evaluation grid (:func:`paper_grids`) through
+    :func:`run_grids`; each cell but the production trace's twinned on
+    the CPU.  One line a cell, then the summary."""
+    t_phase = time.perf_counter()
+    production = generate_production_trace(MODEL_FLEET, n_jobs=n_jobs,
+                                           seed=7, **TRACE_KW)
+    got, totals = run_grids("paper_grid", paper_grids(production), launches,
+                            rec)
     # the cell with the most fill launches: a snapshot cell's two to five
     # can all fall among the records a late trace loses
     share = device_busy_share(
@@ -1379,20 +1791,109 @@ def phase_paper_grid(launches, rec: Recorder, n_jobs: int) -> dict:
                     SimConfig(fluid_backend="kernel", device=DEVICE,
                               **dynamic_sim_kw(production))),
         "profiled run of the production cell (dynamic-trace, diktyo)")
-    out = dict(cells=n_cells, cells_json_equal_to_cpu_twin=n_twins,
-               seconds=time.perf_counter() - t_phase, grid_seconds=seconds,
-               fill_launches=fill_launches,
-               fill_op_calls=rec.n_calls("progressive_fill"),
+    out = dict(seconds=time.perf_counter() - t_phase, **totals,
                device_busy_production_cell=share, **grid_summary(got))
     emit("paper_grid_summary", **out)
     return out
 
 
+def planner_walltime(launches, rec: Recorder) -> dict:
+    """``bench_rotation``'s F4 planner wall time: the per-link
+    ``solve_link`` loop against ``joint_solve(backend="kernel")`` on the
+    card, ``PLANNER_REPS`` calls each after a warm-up (host µs a call);
+    the kernel's shifts and score held to the numpy backend's."""
+    cluster, fw, ctrl = schedule_snapshot("F4", ROTATION_ITERATIONS)
+    ctrl.run_offline_recalculation(fw.registry, cluster)
+    view = LinkView.from_registry(cluster, fw.registry)
+    links = [l for l in view.planning_links() if is_uplink(l)]
+
+    def loop_path():
+        return [rotation.solve_link(view, fw.registry, lid, mode="fast")
+                for lid in links]
+
+    def batched_path():
+        return rotation.joint_solve(view, fw.registry, links, mode="fast",
+                                    backend="kernel", device=DEVICE)
+
+    want = rotation.joint_solve(view, fw.registry, links, mode="fast",
+                                backend="numpy")
+    before = score_counts(launches)
+    with counted(launches):
+        loop_path()
+        with rec.active():
+            got = batched_path()
+        t0 = time.perf_counter()
+        for _ in range(PLANNER_REPS):
+            loop_path()
+        t_loop = (time.perf_counter() - t0) / PLANNER_REPS * 1e6
+        t0 = time.perf_counter()
+        for _ in range(PLANNER_REPS):
+            res = batched_path()
+        t_batched = (time.perf_counter() - t0) / PLANNER_REPS * 1e6
+    ran = {k: n - before[k] for k, n in score_counts(launches).items()}
+    check(sum(ran.values()) > 0, "the F4 planner's kernel path launched no "
+          "score kernel")
+    for r in (got, res):
+        check(np.array_equal(r.shifts, want.shifts),
+              f"F4 planner: kernel shifts {r.shifts} != numpy "
+              f"{want.shifts}")
+        check(abs(r.score - want.score) <= SCORE_TOL,
+              f"F4 planner: score {r.score} vs {want.score}")
+    return dict(links=links, reps=PLANNER_REPS, loop_host_us=t_loop,
+                batched_host_us=t_batched, score=res.score,
+                shifts=[int(x) for x in res.shifts],
+                speedup_vs_loop=t_loop / t_batched, score_launches=ran)
+
+
+def phase_paper_figures(launches, rec: Recorder) -> dict:
+    """The rest of the paper's evaluation (:func:`paper_figure_grids`)
+    through :func:`run_grids`, every cell twinned on the CPU; J1's worst
+    planning score under each policy; the F4 planner's wall time with the
+    score kernel; Fig. 16's placement and recalculation rows (host time of
+    the card's machine, no kernel).  One line a cell, one for Fig. 16,
+    then the summary."""
+    t_phase = time.perf_counter()
+    got, totals = run_grids("paper_figures", paper_figure_grids(), launches,
+                            rec)
+    worst = {}
+    for pol in ROTATION_POLICIES:
+        cluster, fw, ctrl = schedule_snapshot("J1", ROTATION_ITERATIONS,
+                                              pol.rotation_joint)
+        ctrl.run_offline_recalculation(fw.registry, cluster)
+        worst[pol.name] = worst_planning_score(cluster, fw.registry, ctrl)
+    planner = planner_walltime(launches, rec)
+    placements = [sched_placement(plugin, n)
+                  for n in range(len(SCHED_PERIODS))
+                  for plugin in SCHED_PLUGINS]
+    recalcs = [sched_recalculation(n + 1) for n in range(len(SCHED_PERIODS))]
+    check(len(placements) == 15 and len(recalcs) == 5,
+          f"Fig. 16: {len(placements)} placement and {len(recalcs)} "
+          "recalculation rows")
+    check(all(None not in r["nodes"] for r in placements),
+          "Fig. 16: a placement left a pod unplaced")
+    emit("paper_figures_fig16", note="host time of the card's machine; "
+         "no kernel on this path", placements=placements,
+         recalculations=recalcs)
+    summary = figure_summary(got)
+    summary["rotation_J1"] = {pol: dict(worst_link_score=v)
+                              for pol, v in worst.items()}
+    summary["rotation_planner_F4"] = planner
+    summary["fig16_ms_per_pod"] = {
+        f"fig16_sched_{r['plugin']}_{r['existing_jobs']}jobs": r["ms_per_pod"]
+        for r in placements}
+    summary["fig16_recalc_s"] = {f"fig16_recalc_{r['jobs']}jobs": r["host_s"]
+                                 for r in recalcs}
+    out = dict(seconds=time.perf_counter() - t_phase, **totals, **summary)
+    emit("paper_figures_summary", **out)
+    return out
+
+
 def phase_planner(launches, rec: Recorder, n_candidates: int = 8) -> dict:
     out: Dict[str, dict] = {}
+    before = score_counts(launches)
     t_all = time.perf_counter()
     for sid in ("J1", "F4"):
-        cluster, fw = schedule_snapshot(sid)
+        cluster, fw, _ = schedule_snapshot(sid)
         view = LinkView.from_registry(cluster, fw.registry)
         links = planner_links(sid, view, fw.registry)
         res_np = rotation.joint_solve(view, fw.registry, links,
@@ -1414,7 +1915,7 @@ def phase_planner(launches, rec: Recorder, n_candidates: int = 8) -> dict:
                         score=res_k.score, feasible=bool(res_k.feasible),
                         seconds=seconds)
     # a Score phase's candidate batch: one family, one stacked launch
-    cluster, fw = schedule_snapshot("J1")
+    cluster, fw, _ = schedule_snapshot("J1")
     view = LinkView.from_registry(cluster, fw.registry)
     links = planner_links("J1", view, fw.registry)
     specs = candidate_specs(cluster, fw.registry, links, n_candidates)
@@ -1431,13 +1932,12 @@ def phase_planner(launches, rec: Recorder, n_candidates: int = 8) -> dict:
               f"candidate {k}: score {b.score} vs {a.score}")
     out["J1_batch"] = dict(candidates=n_candidates, seconds=seconds,
                            scores=[r.score for r in got])
-    n_score = sum(launches.get(w.__name__, 0) for w in SCORE_WRAPPERS)
-    check(n_score > 0, "planner launched no score kernel")
-    check(launches.get("metronome_score_multilink_batch", 0) > 0,
+    ran = {k: n - before[k] for k, n in score_counts(launches).items()}
+    check(sum(ran.values()) > 0, "planner launched no score kernel")
+    check(ran["metronome_score_multilink_batch"] > 0,
           "the candidate batch did not reach the batched score launch")
     emit("planner", seconds=time.perf_counter() - t_all,
-         score_launches={w.__name__: launches.get(w.__name__, 0)
-                         for w in SCORE_WRAPPERS}, **out)
+         score_launches=ran, **out)
     return out
 
 
@@ -2799,7 +3299,9 @@ def _flash_bwd_case(q, k, v, o, lse, do, causal: bool, window: int,
         try:  # a yardstick only: a backend that refuses these inputs
             lib = _sdpa_backward(q, k, v, do, causal, window)
             library_ms = time_ms(lib)
-            lib_dev = device_us(lib, None, reps=50, per_call=True)
+            # a burst as long as the kernel's: a trace that lost over half
+            # of 50 calls took a twice-a-call event's count for the calls
+            lib_dev = device_us(lib, None, reps=200, per_call=True)
             device.update(library_device_us=lib_dev["device_us_per_launch"],
                           library_device_traced=lib_dev["device_traced"],
                           library_device_kernels=lib_dev["device_kernels"])
@@ -3070,12 +3572,14 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
 
 
 def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
-                  planner: Recorder, recs: Dict[str, Recorder]) -> dict:
+                  figures: Recorder, planner: Recorder,
+                  recs: Dict[str, Recorder]) -> dict:
     cases: Dict[str, dict] = {}
     # the main path's fill launches all take the one-word route masks
     links = {rec_name: sorted({shape[1][2] for shape in rec.counts[
         "progressive_fill"]}) for rec_name, rec in (
-            ("corpus", corpus), ("loop", loop), ("paper_grid", grid))}
+            ("corpus", corpus), ("loop", loop), ("paper_grid", grid),
+            ("paper_figures", figures))}
     check(all(l <= 32 for ls in links.values() for l in ls),
           f"a main-path fill launch has more than 32 links: {links}")
     cases["fill_links_on_main_path"] = dict(links=links)
@@ -3084,9 +3588,10 @@ def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
     _, n, args = loop.most_common("progressive_fill")
     cases["fill_event_loop"] = dict(_fill_case([args]),
                                     calls_of_this_shape=n)
-    _, n, args = grid.most_common("progressive_fill")
-    cases["fill_paper_grid"] = dict(_fill_case([args]),
-                                    calls_of_this_shape=n)
+    for name, rec in (("fill_paper_grid", grid),
+                      ("fill_paper_figures", figures)):
+        _, n, args = rec.most_common("progressive_fill")
+        cases[name] = dict(_fill_case([args]), calls_of_this_shape=n)
     # padded neutrality: zero-demand flows, zero-route unit-capacity links
     d = np.array([[0.0, 10.0, 0.0, 4.0] + [0.0] * 4])
     r = np.zeros((1, 8, 128))
@@ -3099,7 +3604,8 @@ def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
     check(abs(got[0, 1] - 4.0) <= FILL_TOL and abs(got[0, 3] - 4.0)
           <= FILL_TOL, f"fill kernel: padded case rates {got[0, :4]}")
     cases["fill_padding"] = dict(rates=[float(x) for x in got[0, :4]])
-    for name in ("fill_trace_corpus", "fill_event_loop", "fill_paper_grid"):
+    for name in ("fill_trace_corpus", "fill_event_loop", "fill_paper_grid",
+                 "fill_paper_figures"):
         check(cases[name]["max_abs_err"] == 0.0,
               f"{name}: kernel vs plain {cases[name]['max_abs_err']}")
 
@@ -3111,6 +3617,8 @@ def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
              ref.metronome_score_multilink_batch_ref)):
         for i, args in enumerate(planner.inputs(name)):
             cases[f"{name}_planner{i}"] = _score_case(fn, plain, args)
+        for i, args in enumerate(figures.inputs(name)):
+            cases[f"{name}_paper_figures{i}"] = _score_case(fn, plain, args)
     cases["score_multilink_batch_C64"] = _score_case(
         metronome_score_multilink_batch,
         ref.metronome_score_multilink_batch_ref,
@@ -3641,7 +4149,7 @@ def main(argv: Sequence[str]) -> int:
     ptxas = phase_build()
     launches: Dict[str, int] = {}
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
-    grid = Recorder()
+    grid, figures = Recorder(), Recorder()
     recs = {name: Recorder() for name in (
         "serve", "train", "serve_dense", "train_dense", "serve_moe",
         "train_moe", "serve_encdec", "train_small", "train_sharded",
@@ -3649,6 +4157,7 @@ def main(argv: Sequence[str]) -> int:
     phase_trace_corpus(launches, corpus)
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_paper_grid(launches, grid, EXPERIMENT_JOBS)
+    phase_paper_figures(launches, figures)
     phase_planner(launches, planner)
     phase_serve(launches, recs["serve"])
     phase_train(launches, recs["train"])
@@ -3672,7 +4181,7 @@ def main(argv: Sequence[str]) -> int:
                         recs["train_sharded_griffin"])
     phase_serve_sharded(launches, recs["serve_sharded"])
     phase_elastic(launches, recs["elastic"])
-    cases = phase_kernels(corpus, loop, grid, planner, recs)
+    cases = phase_kernels(corpus, loop, grid, figures, planner, recs)
     print(json.dumps(_digits(kernel_summary(launches, cases, ptxas))),
           flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
