@@ -45,6 +45,21 @@ JSON line with its numbers and seconds:
                 and recalculation times (host time, no kernel); one line
                 a cell, one for Fig. 16 and a summary under the benches'
                 names (printed, not gated)
+  robustness    the reference's graceful-degradation bench
+                (``bench_robustness``) the same way: every control-plane
+                read of bandwidth through a ``TelemetryChannel`` (1 s
+                samples, noise, staleness) while the fluid fill keeps the
+                truth, ``metronome`` against ``metronome-robust``
+                (hysteresis 3 s / 5%, demand reconciliation) on four
+                axes: noise on D1, D2 (0-0.4), staleness on D2 (0-10 s),
+                R1's flapping uplink (0-8 cycles), noise on an 8-job
+                Gavel-style trace (0, 0.2); seeds 3-5, 120 runs, each
+                twinned on the CPU by a pool of spawned processes at a
+                lower priority that runs beside the card side.  One line
+                a run, one a seed-averaged point (the bench's 40 rows,
+                held to ``validate_robustness_dict``), then the summary:
+                each axis's curve and the failure axis's slope under each
+                policy (printed, not gated)
   planner       J1 and F4 scheduled, then ``rotation.joint_solve`` and a
                 candidate batch through ``joint_solve_batch`` with
                 ``backend='kernel'`` held against ``backend='numpy'``
@@ -202,7 +217,9 @@ import ctypes
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -235,10 +252,13 @@ from repro_torch.core.controller import StopAndWaitController  # noqa: E402
 from repro_torch.core.experiment import (Policy, Scenario,  # noqa: E402
                                          run, sweep)
 from repro_torch.core.results import (ExperimentResult,  # noqa: E402
-                                      SweepResult)
+                                      SweepCell, SweepResult,
+                                      to_robustness_dict,
+                                      validate_robustness_dict)
 from repro_torch.core.framework import SchedulingFramework  # noqa: E402
 from repro_torch.core.scheduler import MetronomePlugin  # noqa: E402
 from repro_torch.core.simulator import SimConfig  # noqa: E402
+from repro_torch.core.telemetry import TelemetryChannel  # noqa: E402
 from repro_torch.core.topology import is_uplink, uplink_id  # noqa: E402
 from repro_torch.core.trace import (TraceJobSpec,  # noqa: E402
                                     active_jobs_at, cluster_load,
@@ -1237,6 +1257,223 @@ def figure_summary(got: Dict[str, SweepResult]) -> dict:
         fabric=fabric)
 
 
+# ---------------------------------------------------------------------------
+# the graceful-degradation bench: the settings of the reference's
+# bench_robustness (DESIGN.md section 19), copied because it imports the
+# JAX package; tests/test_torch_robustness_grid.py holds each to the
+# bench's own value
+# ---------------------------------------------------------------------------
+
+SAMPLE_PERIOD_MS = 1000.0
+AXIS_BASE_NOISE = 0.1  # the staleness and failure axes' fixed noise
+ROBUST_POLICIES = (
+    Policy("metronome"),
+    Policy("metronome", label="metronome-robust").with_options(
+        hysteresis_ms=3000.0, hysteresis_frac=0.05, reconcile=True))
+ROBUST_SEEDS = (3, 4, 5)
+ROBUST_JITTER = 0.01
+ROBUST_SIM_MS = 150_000.0
+ROBUST_DYNAMIC_KW = dict(n_iterations=300, t_on_ms=15_000.0,
+                         t_off_ms=45_000.0)
+ROBUST_FAULT_KW = dict(n_iterations=300, start_ms=20_000.0,
+                       period_ms=15_000.0, down_ms=2_000.0)
+NOISE_GRID = (0.0, 0.05, 0.1, 0.2, 0.4)
+STALENESS_GRID = (0.0, 2_000.0, 5_000.0, 10_000.0)
+FLAP_GRID = (0, 2, 4, 8)
+TRACE_NOISE_GRID = (0.0, 0.2)
+ROBUST_TRACE_KW = dict(duration_s=900.0, total_gpus=13, target_load=0.85,
+                       seed=1, job_duration_range_s=(120.0, 240.0))
+ROBUST_TRACE_JOBS = 8
+ROBUST_TRACE_MS = 600_000.0
+ROBUST_TRACE_NAME = "gavel-small"
+# (axis, scenario, x values) in the bench's order, each from its x = 0
+ROBUST_AXES = (("noise", "D1", NOISE_GRID), ("noise", "D2", NOISE_GRID),
+               ("staleness", "D2", STALENESS_GRID),
+               ("failure", "R1", FLAP_GRID),
+               ("trace", ROBUST_TRACE_NAME, TRACE_NOISE_GRID))
+ROBUST_COLUMNS = ("t1000", "hi", "lo", "readj", "reconf", "supp", "recon")
+TWIN_NICE = 10  # the CPU twins' priority beside the card side
+
+
+def robust_trace() -> List[TraceJobSpec]:
+    return generate_trace(MODEL_FLEET, **ROBUST_TRACE_KW)[:ROBUST_TRACE_JOBS]
+
+
+def robust_channel(axis: str, x: float) -> TelemetryChannel:
+    """A run's telemetry channel: ``x`` is the noise on the noise and
+    trace axes and the staleness (ms) on the staleness axis; the
+    staleness and failure axes hold the noise at ``AXIS_BASE_NOISE``."""
+    return TelemetryChannel(
+        sample_period_ms=SAMPLE_PERIOD_MS,
+        noise_std=x if axis in ("noise", "trace") else AXIS_BASE_NOISE,
+        staleness_ms=x if axis == "staleness" else 0.0)
+
+
+def robust_name(axis: str, sid: str, x: float, seed: int) -> str:
+    return f"{axis}-{sid}-x{x:g}-s{seed}"
+
+
+def robust_scenario(axis: str, sid: str, x: float, seed: int,
+                    trace: Sequence[TraceJobSpec]) -> Scenario:
+    """One run of the bench, its ``SimConfig`` (seed and channel) carried
+    by its scenario and its name carrying (axis, scenario, x, seed)."""
+    # Grid.run sets each run's backend and device; "cpu" only lets the
+    # config resolve where there is no card
+    cfg = SimConfig(
+        duration_ms=ROBUST_TRACE_MS if axis == "trace" else ROBUST_SIM_MS,
+        seed=seed, jitter_std=ROBUST_JITTER,
+        telemetry=robust_channel(axis, x), device="cpu")
+    if axis == "trace":
+        scn = trace_scenario(trace, open_ended=True, name=sid,
+                             sim_config=cfg)
+    elif axis == "failure":
+        scn = fault_scenario(sid, n_cycles=int(x), sim_config=cfg,
+                             **ROBUST_FAULT_KW)
+    else:
+        scn = dynamic_scenario(sid, sim_config=cfg, **ROBUST_DYNAMIC_KW)
+    return dataclasses.replace(scn, name=robust_name(axis, sid, x, seed))
+
+
+def robustness_grids(trace: Sequence[TraceJobSpec]) -> List[Grid]:
+    """One grid an (axis, scenario): every (x, seed) run under both
+    policies, 120 runs in all."""
+    return [Grid(f"{axis}_{sid}", tuple(
+        robust_scenario(axis, sid, x, seed, trace)
+        for x in xs for seed in ROBUST_SEEDS), ROBUST_POLICIES, None)
+        for axis, sid, xs in ROBUST_AXES]
+
+
+def robust_point(results: Sequence) -> Dict[str, float]:
+    """``bench_robustness._point``: each column's mean over the seeds'
+    results, NaNs left out, NaN where every seed's is."""
+    cols: Dict[str, List[float]] = {k: [] for k in ROBUST_COLUMNS}
+    for r in results:
+        cols["t1000"].append(r.mean_s_per_1000())
+        cols["hi"].append(r.mean_s_per_1000(r.high_priority))
+        cols["lo"].append(r.mean_s_per_1000(r.low_priority))
+        cols["readj"].append(float(r.sim.readjustments))
+        cols["reconf"].append(float(r.sim.reconfigurations))
+        cols["supp"].append(float(r.sim.suppressed_reconfigurations))
+        cols["recon"].append(float(r.sim.reconciliations))
+    return {k: float(np.nanmean(v)) if any(not math.isnan(x) for x in v)
+            else math.nan for k, v in cols.items()}
+
+
+def robustness_rows(result) -> List[dict]:
+    """``bench_robustness._sweep_axis``'s rows, axis by axis, policy by
+    policy, x by x: the seed means and the degradation against the same
+    (axis, scenario, policy)'s x = 0 point.  ``result(axis, scenario, x,
+    policy, seed)`` gives a run's result."""
+    rows = []
+    for axis, sid, xs in ROBUST_AXES:
+        for pol in ROBUST_POLICIES:
+            anchor = None
+            for x in xs:
+                m = robust_point([result(axis, sid, x, pol.name, seed)
+                                  for seed in ROBUST_SEEDS])
+                if anchor is None:
+                    anchor = m["t1000"]
+                rows.append(dict(
+                    axis=axis, scenario=sid, policy=pol.name, x=float(x),
+                    seeds=len(ROBUST_SEEDS), t1000_mean_s=m["t1000"],
+                    t1000_hi_s=m["hi"], t1000_lo_s=m["lo"],
+                    degradation=m["t1000"] / anchor if anchor else math.nan,
+                    readjustments=m["readj"], reconfigurations=m["reconf"],
+                    suppressed_reconfigurations=m["supp"],
+                    reconciliations=m["recon"]))
+    return rows
+
+
+def robustness_summary(rows: Sequence[dict]) -> dict:
+    """Each axis's curve under both policies and the failure axis's
+    slope at its most cycles, (degradation - 1) a cycle: the bench's
+    claim is that the robust policy's is the shallower (printed, not
+    gated)."""
+    curves: Dict[str, Dict[str, list]] = {}
+    for r in rows:
+        curves.setdefault(f"{r['axis']}_{r['scenario']}", {}).setdefault(
+            r["policy"], []).append(dict(
+                x=r["x"], t1000_s=r["t1000_mean_s"],
+                degradation=r["degradation"],
+                reconfigurations=r["reconfigurations"],
+                suppressed=r["suppressed_reconfigurations"],
+                reconciliations=r["reconciliations"]))
+    slope = {r["policy"]: (r["degradation"] - 1.0) / r["x"] for r in rows
+             if r["axis"] == "failure" and r["x"] == FLAP_GRID[-1]
+             and r["degradation"] is not None}
+    plain, robust = (p.name for p in ROBUST_POLICIES)
+    return dict(curves=curves,
+                failure_slope_per_cycle=dict(cycles=FLAP_GRID[-1], **slope),
+                robust_slope_shallower=slope[robust] < slope[plain]
+                if len(slope) == 2 else None)
+
+
+def _twin_worker_init() -> None:
+    """A CPU twin's worker: the card hidden before anything asks for
+    it, one torch thread, a lower priority than the card side's."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+    os.nice(TWIN_NICE)
+
+
+def _twin_cell(grid: Grid) -> Tuple[SweepCell, float, bool]:
+    """A one-cell grid's CPU twin in a worker: its cell, its seconds, and
+    whether the worker's CUDA was initialised (it must not be)."""
+    t0 = time.perf_counter()
+    (cell,) = grid.run("cpu").cells
+    return cell, time.perf_counter() - t0, torch.cuda.is_initialized()
+
+
+class TwinPool:
+    """The CPU twins of ``grids``, one task a cell, submitted at once to
+    ``workers`` spawned processes (:func:`_twin_worker_init`) that run
+    beside the card side; :meth:`sweep` waits for one grid's."""
+
+    def __init__(self, grids: Sequence[Grid], workers: int) -> None:
+        from concurrent.futures import ProcessPoolExecutor
+        self.workers = workers
+        self.t0 = time.perf_counter()
+        self.done: List[float] = []
+        self.pool = ProcessPoolExecutor(
+            max_workers=workers, initializer=_twin_worker_init,
+            mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {g.name: [self.pool.submit(
+            _twin_cell, dataclasses.replace(g, scenarios=(s,),
+                                            policies=(p,)))
+            for s in g.scenarios for p in g.policies]
+            for g in grids if g.twin}
+        for fs in self.futures.values():
+            for f in fs:
+                f.add_done_callback(
+                    lambda _: self.done.append(time.perf_counter()))
+
+    def __enter__(self) -> "TwinPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def sweep(self, grid: Grid) -> Tuple[SweepResult,
+                                         Dict[Tuple[str, str], float]]:
+        """``grid``'s twin as ``sweep`` gives it (row-major cells), and
+        each cell's seconds in its worker."""
+        outs = [f.result() for f in self.futures[grid.name]]
+        check(not any(cuda for _, _, cuda in outs),
+              f"a CPU twin of {grid.name} initialised CUDA")
+        return (SweepResult(cells=[c for c, _, _ in outs]),
+                {(c.scenario, c.policy): s for c, s, _ in outs})
+
+    def stats(self) -> dict:
+        return dict(workers=self.workers, cells=len(self.done),
+                    wall_s=max(self.done, default=self.t0) - self.t0)
+
+
+def twin_workers() -> int:
+    """The CPU twins' processes: the host's cores less one for the card
+    side's process and one for the rest."""
+    return max(1, len(os.sched_getaffinity(0)) - 2)
+
+
 def schedule_snapshot(sid: str, n_iterations: int = 100,
                       joint: bool = True):
     """``sid`` scheduled by the Metronome plugin with the joint planner
@@ -1594,11 +1831,11 @@ def phase_build() -> Dict[str, Dict[str, dict]]:
     return ptxas
 
 
-def phase_trace_corpus(launches, rec: Recorder) -> dict:
+def phase_trace_corpus(launches, rec: Recorder, n_jobs: int = 10_000,
+                       n_snap: int = 1024) -> dict:
     t0 = time.perf_counter()
-    trace = generate_production_trace(MODEL_FLEET, n_jobs=10_000, seed=7)
+    trace = generate_production_trace(MODEL_FLEET, n_jobs=n_jobs, seed=7)
     horizon = max(s.submit_time_s for s in trace)
-    n_snap = 1024
     probs = [snapshot_problem(trace, horizon * (i + 0.5) / n_snap)
              for i in range(n_snap)]
     probs = [p for p in probs if p[0]]
@@ -1612,13 +1849,15 @@ def phase_trace_corpus(launches, rec: Recorder) -> dict:
     oracle_s = time.perf_counter() - t0
 
     fluid.fill_corpus(mats, backend="kernel", device=DEVICE)  # warm-up
+    before = launches.get("metronome_fill", 0)
     with counted(launches), rec.active():
         t0 = time.perf_counter()
         rates = fluid.fill_corpus(mats, backend="kernel", device=DEVICE)
         seconds = time.perf_counter() - t0
+    fill_launches = launches["metronome_fill"] - before
     err = max(float(np.max(np.abs(r - g))) if len(g) else 0.0
               for r, g in zip(rates, golden))
-    check(launches["metronome_fill"] > 0, "trace corpus launched no fill")
+    check(fill_launches > 0, "trace corpus launched no fill")
     check(err <= ORACLE_TOL,
           f"trace corpus: kernel vs fill_python max abs err {err} > "
           f"{ORACLE_TOL}")
@@ -1626,8 +1865,7 @@ def phase_trace_corpus(launches, rec: Recorder) -> dict:
                max_flows=max(len(p[0]) for p in probs), n_links=9,
                seconds=seconds, problems_per_s=len(probs) / seconds,
                flows_per_s=n_flows / seconds, oracle_seconds=oracle_s,
-               setup_seconds=setup_s,
-               fill_launches=launches["metronome_fill"],
+               setup_seconds=setup_s, fill_launches=fill_launches,
                max_abs_err_vs_fill_python=err)
     emit("trace_corpus", **out)
     return out
@@ -1639,17 +1877,19 @@ def phase_experiment(launches, rec: Recorder, n_jobs: int) -> dict:
     scen = dynamic_trace_scenario(trace)
     cfg = dynamic_sim_config(trace, fluid_backend="kernel", device=DEVICE,
                              profile=True)
+    before = launches.get("metronome_fill", 0)
     with audited_engines() as engines, counted(launches), rec.active():
         t0 = time.perf_counter()
         res = run(scen, DYNAMIC_POLICY, cfg)
         _sync()
         seconds = time.perf_counter() - t0
+    fill_launches = launches["metronome_fill"] - before
     check(len(engines) == 1, f"expected one fluid engine, got {len(engines)}")
     eng = engines[0]
     err = audit_error(eng)
     sim = res.sim
     prof = sim.profile
-    check(launches["metronome_fill"] > 0, "experiment launched no fill")
+    check(fill_launches > 0, "experiment launched no fill")
     check(len(eng.samples) > 0, "experiment sampled no in-loop solve")
     check(err <= ORACLE_TOL,
           f"experiment: in-loop fill vs fill_python max abs err {err}")
@@ -1671,7 +1911,7 @@ def phase_experiment(launches, rec: Recorder, n_jobs: int) -> dict:
                phase_seconds=prof.phase_seconds(),
                total_completion_ms=sim.total_completion_ms,
                accepted=len(res.accepted), pending=len(res.rejected),
-               fill_launches=launches["metronome_fill"],
+               fill_launches=fill_launches,
                fill_op_calls=rec.n_calls("progressive_fill"),
                fill_op_seconds=rec.seconds["progressive_fill"],
                fill_op_us_per_call=rec.seconds["progressive_fill"] * 1e6
@@ -1686,14 +1926,18 @@ def phase_experiment(launches, rec: Recorder, n_jobs: int) -> dict:
 
 
 def run_grids(phase: str, grids: Sequence[Grid], launches,
-              rec: Recorder) -> Tuple[Dict[str, SweepResult], dict]:
+              rec: Recorder, twins: Optional[TwinPool] = None
+              ) -> Tuple[Dict[str, SweepResult], dict]:
     """Each grid one ``sweep`` on the card and, where it has a twin, again
-    on the CPU, whose results JSON must equal the card's.  Every card
-    cell's in-loop solves are held against ``fill_python``; a cell without
-    a twin must also sample some, admit a job and end at a finite time.
-    One ``phase`` line a cell.  Returns the card's sweeps by grid and the
-    totals: cells, twinned cells, audited solves, their largest error, the
-    fill's launches and op calls, and each grid's seconds."""
+    on the CPU, whose results JSON must equal the card's: run here after
+    the card's, or taken from ``twins``, whose workers ran it beside.
+    Every card cell's in-loop solves are held against ``fill_python``; a
+    cell without a twin must also sample some, admit a job and end at a
+    finite time.  One ``phase`` line a cell.  Returns the card's sweeps by
+    grid and the totals: cells, twinned cells, audited solves, their
+    largest error, the fill's launches and op calls, and each grid's
+    seconds (with ``twins``: the twin cells' seconds in their workers,
+    and how long this process waited for them)."""
     got: Dict[str, SweepResult] = {}
     seconds: Dict[str, dict] = {}
     totals = dict(cells=0, cells_json_equal_to_cpu_twin=0, audited_solves=0,
@@ -1712,11 +1956,21 @@ def run_grids(phase: str, grids: Sequence[Grid], launches,
             check(not card.errors, f"{phase} {grid.name}: cells failed: "
                   + "\n".join(c.error for c in card.errors))
             twin = None
-            if grid.twin:
+            if grid.twin and twins is not None:
+                t0 = time.perf_counter()
+                twin, twin_s = twins.sweep(grid)
+                seconds[grid.name].update(
+                    cpu=sum(twin_s.values()),
+                    cpu_wait=time.perf_counter() - t0)
+            elif grid.twin:
                 t0 = time.perf_counter()
                 with twin_rec.active():
                     twin = grid.run("cpu")
                 seconds[grid.name]["cpu"] = time.perf_counter() - t0
+                twin_s = {(c.scenario, c.policy): meters[
+                    (c.scenario, c.policy, "cpu")]["seconds"]
+                    for c in twin.cells}
+            if twin is not None:
                 check(not twin.errors, f"{phase} {grid.name}: CPU twin "
                       "cells failed: "
                       + "\n".join(c.error for c in twin.errors))
@@ -1742,8 +1996,7 @@ def run_grids(phase: str, grids: Sequence[Grid], launches,
                     check(res.to_json_dict() == want.to_json_dict(),
                           f"{where}: results JSON differs between the card "
                           "and its CPU twin")
-                    out.update(cpu_s=meters[(cell.scenario, cell.policy,
-                                             "cpu")]["seconds"],
+                    out.update(cpu_s=twin_s[(cell.scenario, cell.policy)],
                                json_equal_to_cpu_twin=True)
                     totals["cells_json_equal_to_cpu_twin"] += 1
                 else:
@@ -1885,6 +2138,70 @@ def phase_paper_figures(launches, rec: Recorder) -> dict:
                                  for r in recalcs}
     out = dict(seconds=time.perf_counter() - t_phase, **totals, **summary)
     emit("paper_figures_summary", **out)
+    return out
+
+
+def _frozen(obj) -> bool:
+    return dataclasses.is_dataclass(obj) and \
+        type(obj).__dataclass_params__.frozen
+
+
+def phase_robustness(launches, rec: Recorder) -> dict:
+    """``bench_robustness``'s grid (:func:`robustness_grids`) through
+    :func:`run_grids`: its 120 CPU twins submitted first to a pool of
+    :func:`twin_workers` processes that runs them beside the card side.
+    One line a run, one a point (the bench's rows, which must pass
+    ``validate_robustness_dict``), then the summary."""
+    t_phase = time.perf_counter()
+    # the trace axis first: its card side (~110 s) covers the workers'
+    # start (~12 s), and its twins, the longest, go first to the pool
+    grids = sorted(robustness_grids(robust_trace()),
+                   key=lambda g: not g.name.startswith("trace_"))
+    for g in grids:
+        check(all(_frozen(s) and _frozen(s.build)
+                  and _frozen(s.sim_config.telemetry) for s in g.scenarios)
+              and all(_frozen(p) for p in g.policies),
+              f"robustness {g.name}: a scenario, build, channel or policy "
+              "is not a frozen dataclass")
+        check(pickle.loads(pickle.dumps(g)) == g,
+              f"robustness {g.name}: the grid does not pickle")
+    workers = twin_workers()
+    emit("robustness_twins", workers=workers,
+         cores=len(os.sched_getaffinity(0)), nice=TWIN_NICE,
+         cells=sum(len(g.scenarios) * len(g.policies) for g in grids))
+    before = score_counts(launches)
+    with TwinPool(grids, workers) as twins:
+        got, totals = run_grids("robustness", grids, launches, rec, twins)
+        pool = twins.stats()
+    check(not multiprocessing.active_children(),
+          f"robustness: twin workers left running: "
+          f"{multiprocessing.active_children()}")
+    doc = to_robustness_dict(robustness_rows(
+        lambda axis, sid, x, policy, seed: got[f"{axis}_{sid}"].get(
+            robust_name(axis, sid, x, seed), policy)))
+    problems = validate_robustness_dict(doc)
+    check(not problems, f"robustness rows: {problems}")
+    check(len(doc["rows"]) == sum(len(xs) for _, _, xs in ROBUST_AXES)
+          * len(ROBUST_POLICIES), f"{len(doc['rows'])} robustness rows")
+    for row in doc["rows"]:
+        emit("robustness_point", **row)
+    # the degradation control fires under the robust policy alone
+    fired = {p.name: {k: sum(r[k] for r in doc["rows"]
+                             if r["policy"] == p.name)
+                      for k in ("suppressed_reconfigurations",
+                                "reconciliations")}
+             for p in ROBUST_POLICIES}
+    plain, robust = (p.name for p in ROBUST_POLICIES)
+    check(all(v > 0 for v in fired[robust].values()),
+          f"robustness: the robust policy's controls never fired: {fired}")
+    check(not any(fired[plain].values()),
+          f"robustness: the plain policy's controls fired: {fired}")
+    out = dict(seconds=time.perf_counter() - t_phase, **totals,
+               twin_pool=pool,
+               score_launches={k: n - before[k]
+                               for k, n in score_counts(launches).items()},
+               controls_fired=fired, **robustness_summary(doc["rows"]))
+    emit("robustness_summary", **out)
     return out
 
 
@@ -3572,14 +3889,14 @@ def _score_problem(seed: int, c: int, l: int, ra: int, rb: int, s: int):
 
 
 def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
-                  figures: Recorder, planner: Recorder,
+                  figures: Recorder, robust: Recorder, planner: Recorder,
                   recs: Dict[str, Recorder]) -> dict:
     cases: Dict[str, dict] = {}
     # the main path's fill launches all take the one-word route masks
     links = {rec_name: sorted({shape[1][2] for shape in rec.counts[
         "progressive_fill"]}) for rec_name, rec in (
             ("corpus", corpus), ("loop", loop), ("paper_grid", grid),
-            ("paper_figures", figures))}
+            ("paper_figures", figures), ("robustness", robust))}
     check(all(l <= 32 for ls in links.values() for l in ls),
           f"a main-path fill launch has more than 32 links: {links}")
     cases["fill_links_on_main_path"] = dict(links=links)
@@ -3589,7 +3906,8 @@ def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
     cases["fill_event_loop"] = dict(_fill_case([args]),
                                     calls_of_this_shape=n)
     for name, rec in (("fill_paper_grid", grid),
-                      ("fill_paper_figures", figures)):
+                      ("fill_paper_figures", figures),
+                      ("fill_robustness", robust)):
         _, n, args = rec.most_common("progressive_fill")
         cases[name] = dict(_fill_case([args]), calls_of_this_shape=n)
     # padded neutrality: zero-demand flows, zero-route unit-capacity links
@@ -3605,7 +3923,7 @@ def phase_kernels(corpus: Recorder, loop: Recorder, grid: Recorder,
           <= FILL_TOL, f"fill kernel: padded case rates {got[0, :4]}")
     cases["fill_padding"] = dict(rates=[float(x) for x in got[0, :4]])
     for name in ("fill_trace_corpus", "fill_event_loop", "fill_paper_grid",
-                 "fill_paper_figures"):
+                 "fill_paper_figures", "fill_robustness"):
         check(cases[name]["max_abs_err"] == 0.0,
               f"{name}: kernel vs plain {cases[name]['max_abs_err']}")
 
@@ -4149,7 +4467,7 @@ def main(argv: Sequence[str]) -> int:
     ptxas = phase_build()
     launches: Dict[str, int] = {}
     corpus, loop, planner = Recorder(keep=64), Recorder(), Recorder()
-    grid, figures = Recorder(), Recorder()
+    grid, figures, robust = Recorder(), Recorder(), Recorder()
     recs = {name: Recorder() for name in (
         "serve", "train", "serve_dense", "train_dense", "serve_moe",
         "train_moe", "serve_encdec", "train_small", "train_sharded",
@@ -4158,6 +4476,7 @@ def main(argv: Sequence[str]) -> int:
     phase_experiment(launches, loop, EXPERIMENT_JOBS)
     phase_paper_grid(launches, grid, EXPERIMENT_JOBS)
     phase_paper_figures(launches, figures)
+    phase_robustness(launches, robust)
     phase_planner(launches, planner)
     phase_serve(launches, recs["serve"])
     phase_train(launches, recs["train"])
@@ -4181,7 +4500,8 @@ def main(argv: Sequence[str]) -> int:
                         recs["train_sharded_griffin"])
     phase_serve_sharded(launches, recs["serve_sharded"])
     phase_elastic(launches, recs["elastic"])
-    cases = phase_kernels(corpus, loop, grid, figures, planner, recs)
+    cases = phase_kernels(corpus, loop, grid, figures, robust, planner,
+                          recs)
     print(json.dumps(_digits(kernel_summary(launches, cases, ptxas))),
           flush=True)
     emit("total", seconds=time.perf_counter() - t_start, launches=launches)
