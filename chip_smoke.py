@@ -1605,12 +1605,22 @@ def _profiled(fn, record_shapes: bool = False):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us = 0.0
     by_kernel: Dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += ev.self_device_time_total
-            by_kernel[ev.name] = (by_kernel.get(ev.name, 0.0)
-                                  + ev.self_device_time_total)
+    for ev in _device_events(prof.events()):
+        busy_us += ev.self_device_time_total
+        by_kernel[ev.name] = (by_kernel.get(ev.name, 0.0)
+                              + ev.self_device_time_total)
     return prof, wall_us, busy_us, by_kernel
+
+
+def _device_events(events):
+    """The device's own work among a profile's events or rows: kernels,
+    copies and fills.  A span (``record_function``, as the port's train
+    step and AdamW open while a profiler records) also comes back as a
+    CUDA event, a ``gpu_user_annotation`` whose time is that of the
+    kernels inside it: counting it would count those kernels again."""
+    return [ev for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.is_user_annotation]
 
 
 def _busy_summary(wall_us: float, busy_us: float,
@@ -1751,9 +1761,7 @@ def device_us(fn, kernels: Optional[Sequence[str]],
             ran = reps
         seen: Dict[str, int] = {}
         by_key: Dict[str, Tuple[float, int]] = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
+        for ev in _device_events(prof.key_averages()):
             seen[ev.key[:60]] = ev.count
             if kernels is None or any(k in ev.key for k in kernels):
                 by_key[ev.key] = (ev.self_device_time_total, ev.count)

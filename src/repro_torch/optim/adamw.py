@@ -9,6 +9,10 @@ place, leaf by leaf, freeing each leaf's float32 temporaries before the
 next: at full width the embedding and head leaves are 655 M elements each
 (2.6 GB apiece in float32), and a second copy of the state would not fit
 beside the first.
+
+While a ``torch.profiler`` records, :func:`adamw_update` runs inside the
+span ``repro_torch.adamw.update`` (``_spans.span``): the global norm, the
+clip, the schedule, the moments and the parameters.
 """
 from __future__ import annotations
 
@@ -18,7 +22,10 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from .._spans import span
 from .._tree import leaves, tree_map
+
+UPDATE_SPAN = "repro_torch.adamw.update"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +82,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}): the
     parameters and the moments are the given tensors, updated in place;
     the step counter is a new tensor."""
+    with span(UPDATE_SPAN):
+        return _update(cfg, params, grads, state)
+
+
+def _update(cfg, params, grads, state):
     step = state["step"] + 1
     gnorm = global_norm(grads)
     if cfg.grad_clip > 0:

@@ -9,6 +9,17 @@ parameter leaves.  All tensors carry logical-axis sharding constraints:
 with DTensor parameters (``sharding.shard_tree``) under
 ``sharding.use_rules(mesh)`` the step runs sharded over the mesh; with
 plain parameters the constraints do nothing and it runs on one device.
+
+While a ``torch.profiler`` records, a train step marks its work with spans
+(``_spans.span``): ``repro_torch.train_step.forward`` around each
+micro-batch's slice and loss; ``repro_torch.train_step.backward`` around
+each micro-batch's ``torch.autograd.grad`` (the remat recompute included)
+and its gradients' constraints; ``repro_torch.train_step.accumulate``
+around each stretch that makes or changes the float32 gradient sum (the
+buffers, each micro-batch's adds and loss sums, the division and the int8
+round trip).  AdamW adds its own (``optim/adamw.py``).  The benchmark's
+``forward_ms``, ``backward_ms``, ``grad_accum_ms`` and ``optimizer_ms``
+read them.
 """
 from __future__ import annotations
 
@@ -23,7 +34,12 @@ from ..optim import AdamWConfig, adamw_init, adamw_update, quantize_int8
 from ..sharding import (best_spec, current_rules, distribute, logical_shard,
                         spec_leaves)
 from ..sharding.local import is_dtensor
+from .._spans import span
 from .._tree import leaves, rebuild
+
+FORWARD_SPAN = "repro_torch.train_step.forward"
+BACKWARD_SPAN = "repro_torch.train_step.backward"
+ACCUMULATE_SPAN = "repro_torch.train_step.accumulate"
 
 
 @dataclasses.dataclass
@@ -117,23 +133,26 @@ def build_train_step(
         params = leaves(state.params)
         dtensor_params = is_dtensor(params[0])
         batch = {k: constrain(k, v, dtensor_params) for k, v in batch.items()}
-        grads = [torch.zeros_like(p, dtype=accum_dtype,
-                                  memory_format=torch.contiguous_format)
-                 for p in params]
+        with span(ACCUMULATE_SPAN):
+            grads = [torch.zeros_like(p, dtype=accum_dtype,
+                                      memory_format=torch.contiguous_format)
+                     for p in params]
         # 0 + x is x: the sums start from the first micro-batch's values,
         # which are DTensors when the parameters are
         loss_sum = aux_sum = 0.0
         for i in range(n_micro):
-            xs = [p.detach().requires_grad_() for p in params]
-            # DTensor gathers a sharded batch's rows to slice them: the
-            # slice is sharded again
-            mb = {k: constrain(k, _micro_slice(v, i, n_micro),
-                               dtensor_params) for k, v in batch.items()}
-            loss, metrics = loss_fn(rebuild(state.params, xs), cfg, mb)
-            g = _constrain_grads(
-                torch.autograd.grad(loss, xs, allow_unused=True))
+            with span(FORWARD_SPAN):
+                xs = [p.detach().requires_grad_() for p in params]
+                # DTensor gathers a sharded batch's rows to slice them: the
+                # slice is sharded again
+                mb = {k: constrain(k, _micro_slice(v, i, n_micro),
+                                   dtensor_params) for k, v in batch.items()}
+                loss, metrics = loss_fn(rebuild(state.params, xs), cfg, mb)
+            with span(BACKWARD_SPAN):
+                g = _constrain_grads(
+                    torch.autograd.grad(loss, xs, allow_unused=True))
             del xs
-            with torch.no_grad():
+            with torch.no_grad(), span(ACCUMULATE_SPAN):
                 for acc, gi in zip(grads, g):
                     if gi is not None:
                         acc.add_(gi)
@@ -141,7 +160,7 @@ def build_train_step(
                 loss_sum = loss_sum + loss.detach()
                 aux_sum = aux_sum + metrics["aux"].detach()
             del loss, metrics
-        with torch.no_grad():
+        with torch.no_grad(), span(ACCUMULATE_SPAN):
             for acc in grads:
                 acc.div_(n_micro)
             if compress_grads:
