@@ -63,6 +63,16 @@ JSON line with its numbers and seconds:
   planner       J1 and F4 scheduled, then ``rotation.joint_solve`` and a
                 candidate batch through ``joint_solve_batch`` with
                 ``backend='kernel'`` held against ``backend='numpy'``
+  lm_head       the LM head's three kernels (the float32 logits of bf16
+                activations and head, and their two gradients) at the
+                training cells' micro-batch shapes, InternLM2-20B's (4096,
+                6144, 92544) and Mistral-7B's (4096, 4096, 32000): each
+                one's largest error against a float64 product must be at
+                most twice the float32 product's (cuBLAS, TF32 off); ms,
+                device µs a launch, the bound (the product's operations,
+                one pass) and the algorithm's floor (seven bf16 passes in
+                all), TFLOP/s, and the float32 product's ms, the path the
+                kernels replaced
   serve         RecurrentGemma-2B at full width (random weights from a
                 seed, bf16) served by ``launch.serve.serve_requests``: 8
                 requests in batches of 4, 4064-token prompts, 32 generated
@@ -184,6 +194,10 @@ Every check that fails raises, so the script exits non-zero; it also exits
 non-zero without a CUDA device.  The last lines are the kernel summary, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 
+    python3 chip_smoke.py --lm-head
+
+runs the device, build and lm_head phases alone.
+
     python3 chip_smoke.py --compare-flash OTHER/flash_attention.cu
 
 runs none of the phases: it builds another ``flash_attention.cu`` (a parent
@@ -270,6 +284,8 @@ from repro_torch.core.workload import Workload, make_job  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _bwd_head_split, _flash_attention_bwd, flash_attention_fwd)
+from repro_torch.kernels.lm_head import (_lm_head_dw,  # noqa: E402
+                                         _lm_head_dx, _lm_head_fwd)
 from repro_torch.kernels.metronome_fill import metronome_fill  # noqa: E402
 from repro_torch.kernels.metronome_score import (  # noqa: E402
     metronome_score_multilink, metronome_score_multilink_batch,
@@ -412,11 +428,13 @@ FLASH_KERNELS = ("flash_fwd_",)
 # dK/dV, dQ), bf16 three (bwd_rowstats, dK/dV, dQ) or, where it splits the
 # group's q heads, four (bwd_reduce too): flash_bwd_kernels gives the count
 FLASH_BWD_KERNELS = ("flash_bwd_", "bwd_delta", "bwd_rowstats", "bwd_reduce")
+LM_HEAD_KERNELS = ("lm_head_gemm",)
 
 SCORE_WRAPPERS = (metronome_score_multilink_batch, metronome_score_multilink,
                   metronome_score_pairwise)
+LM_HEAD_WRAPPERS = (_lm_head_fwd, _lm_head_dx, _lm_head_dw)
 MODEL_WRAPPERS = (flash_attention_fwd, _flash_attention_bwd, rg_lru_pallas,
-                  _rg_lru_pallas_bwd)
+                  _rg_lru_pallas_bwd) + LM_HEAD_WRAPPERS
 ALL_WRAPPERS = (metronome_fill,) + SCORE_WRAPPERS + MODEL_WRAPPERS
 
 
@@ -1644,13 +1662,15 @@ def device_busy_share(fn, note: str) -> dict:
 def train_step_profile(fn, seq: int, vocab: int) -> dict:
     """:func:`device_busy_share` of one training step, plus device time by
     source: the LM head's float32 products (``aten::mm`` with a
-    vocab-sized dimension), any plain attention over (seq, seq) scores
-    (``aten::bmm``: the recompute through ``attention_ref`` that the
-    backward kernel replaced; the train phases check it reads 0), the
-    other products, and the port's kernels.  ``seq_bmm_ms_by_the_old_rule``
-    reads, outside the split, every ``aten::bmm`` with two seq-sized
-    dimensions, the rule the split used before the backward kernel: the
-    plain attention and the weight gradients that contract over seq."""
+    vocab-sized dimension, where the head's operands do not take its
+    kernels) and its kernels (``lm_head``), any plain attention over (seq,
+    seq) scores (``aten::bmm``: the recompute through ``attention_ref``
+    that the backward kernel replaced; the train phases check it reads 0),
+    the other products, and the port's kernels.
+    ``seq_bmm_ms_by_the_old_rule`` reads, outside the split, every
+    ``aten::bmm`` with two seq-sized dimensions, the rule the split used
+    before the backward kernel: the plain attention and the weight
+    gradients that contract over seq."""
     prof, wall_us, busy_us, by_kernel = _profiled(fn, record_shapes=True)
     out = _busy_summary(wall_us, busy_us, by_kernel,
                         "one step on the repeated batch under torch.profiler")
@@ -1678,7 +1698,8 @@ def train_step_profile(fn, seq: int, vocab: int) -> dict:
     for name, keys in (("flash_fwd", FLASH_KERNELS),
                        ("flash_bwd", FLASH_BWD_KERNELS),
                        ("rg_lru", ("rg_lru_kernel",)),
-                       ("rg_lru_bwd", ("rg_lru_bwd_kernel",))):
+                       ("rg_lru_bwd", ("rg_lru_bwd_kernel",)),
+                       ("lm_head", LM_HEAD_KERNELS)):
         ops[name] = sum(us for k, us in by_kernel.items()
                         if any(key in k for key in keys))
     ops["rest"] = busy_us - sum(ops.values())
@@ -4434,6 +4455,83 @@ def compare_flash_bwd(other_source: str, reports: Dict[str, str]) -> dict:
     return rows
 
 
+# the LM head's products at the training cells' micro-batch (T, d, V)
+LM_HEAD_CELLS = {"internlm2-20b": (4096, 6144, 92544),
+                 "mistral-7b": (4096, 4096, 32000)}
+
+
+def phase_lm_head() -> dict:
+    """The LM head's three kernels (``kernels/lm_head.py``) at the training
+    cells' micro-batch shapes: each launch's CUDA-event ms around the
+    wrapper and device µs (``torch.profiler``); its bound, the product's
+    operations (2*T*d*V) at 989 TFLOP/s, the roofline; its floor, the
+    operations the kernel's algorithm runs (one bf16 pass for the forward,
+    three for each backward product: the cost of float32's precision) at
+    the same rate; the TFLOP/s of those passes; the plain version's ms (the
+    float32 product through cuBLAS, TF32 off, and its cast: the path the
+    kernels replaced) and its float32 bound (67 TFLOP/s); the largest error
+    of each against a float64 product, which the kernel must hold to twice
+    the plain version's.  Each cell's summary gives the three launches'
+    device ms against the summed bound (``bound_share``, the roofline
+    share) and floor (``floor_share``), and the phase's seconds."""
+    rows = {}
+    for cell, (t, d, v) in LM_HEAD_CELLS.items():
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEVICE).manual_seed(t + d + v)
+        x = torch.randn((t, d), generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        w = (torch.randn((d, v), generator=gen, device=DEVICE) * 0.02).to(
+            torch.bfloat16)
+        dl = torch.softmax(torch.randn((t, v), generator=gen, device=DEVICE),
+                           dim=-1) / t
+        calls = {
+            "fwd": (lambda: _lm_head_fwd(x, w), lambda: ref.lm_head_fwd_ref(
+                x, w), lambda: x.double() @ w.double(), 1),
+            "dx": (lambda: _lm_head_dx(dl, w), lambda: ref.lm_head_dx_ref(
+                dl, w), lambda: dl.double() @ w.double().t(), 3),
+            "dw": (lambda: _lm_head_dw(x, dl), lambda: ref.lm_head_dw_ref(
+                x, dl), lambda: x.double().t() @ dl.double(), 3),
+        }
+        row: Dict[str, dict] = {}
+        for name, (kernel, plain, exact, passes) in calls.items():
+            want = exact()
+            errs = [float((f().double() - want).abs().max())
+                    for f in (kernel, plain)]
+            del want
+            check(errs[0] <= 2.0 * errs[1],
+                  f"lm_head {cell} {name}: largest error {errs[0]} against "
+                  f"the float32 product's {errs[1]}")
+            ops_n = 2 * t * d * v
+            got = device_us(kernel, LM_HEAD_KERNELS, reps=10)
+            ms = time_ms(kernel)
+            row[name] = dict(
+                ms=ms, device_us_per_launch=got["device_us_per_launch"],
+                device_traced=got["device_traced"],
+                bound_ms=ops_n / PEAK_BF16_OPS_PER_S * 1e3,
+                bound_by="operations",
+                floor_ms=passes * ops_n / PEAK_BF16_OPS_PER_S * 1e3,
+                tflops=passes * ops_n / (got["device_us_per_launch"] * 1e-6)
+                / 1e12,
+                plain_ms=time_ms(plain),
+                plain_bound_ms=2 * t * d * v / PEAK_FP32_OPS_PER_S * 1e3,
+                max_abs_err=errs[0], plain_max_abs_err=errs[1])
+            torch.cuda.empty_cache()
+        total_us = sum(r["device_us_per_launch"] for r in row.values())
+        summary = dict(
+            shape=[t, d, v], device_ms=total_us / 1e3,
+            bound_ms=sum(r["bound_ms"] for r in row.values()),
+            floor_ms=sum(r["floor_ms"] for r in row.values()),
+            plain_ms=sum(r["plain_ms"] for r in row.values()))
+        summary["bound_share"] = summary["bound_ms"] / summary["device_ms"]
+        summary["floor_share"] = summary["floor_ms"] / summary["device_ms"]
+        summary["seconds"] = time.perf_counter() - t0
+        rows[cell] = dict(row, **summary)
+        emit("lm_head", case=cell, **rows[cell])
+        del x, w, dl, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
 EXPERIMENT_JOBS = 1000
 MAIN_PATH_FLASH = ("flash_serve", "flash_train", "flash_serve_dense",
                    "flash_train_dense", "flash_serve_moe", "flash_train_moe",
@@ -4456,6 +4554,12 @@ def main(argv: Sequence[str]) -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv == ["--lm-head"]:
+        info = phase_device()
+        phase_build()
+        phase_lm_head()
+        print(info["nvidia_smi"], flush=True)
+        return 0
     compares = {"--compare-flash": lambda path, _: compare_flash(path),
                 "--compare-rg-lru": compare_rg_lru,
                 "--compare-flash-bwd": compare_flash_bwd}
@@ -4465,7 +4569,8 @@ def main(argv: Sequence[str]) -> int:
         compares[argv[0]](argv[1], reports)
         print(info["nvidia_smi"], flush=True)
         return 0
-    check(not argv, f"arguments {list(argv)}: none, --compare-flash "
+    check(not argv, f"arguments {list(argv)}: none, --lm-head, "
+          "--compare-flash "
           "PATH_OF_ANOTHER_flash_attention.cu, --compare-rg-lru "
           "PATH_OF_ANOTHER_rg_lru.cu or --compare-flash-bwd "
           "PATH_OF_ANOTHER_flash_attention_bwd.cu")
@@ -4486,6 +4591,7 @@ def main(argv: Sequence[str]) -> int:
     phase_paper_figures(launches, figures)
     phase_robustness(launches, robust)
     phase_planner(launches, planner)
+    phase_lm_head()
     phase_serve(launches, recs["serve"])
     phase_train(launches, recs["train"])
     phase_serve(launches, recs["serve_dense"], SERVE_DENSE, "serve_dense")

@@ -29,7 +29,7 @@ if TYPE_CHECKING:
 CSRC = Path(__file__).resolve().parent / "kernels" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("metronome_fill", "metronome_score", "flash_attention",
-           "flash_attention_bwd", "rg_lru")
+           "flash_attention_bwd", "rg_lru", "lm_head")
 
 # sm_90a keeps Hopper's wgmma/setmaxnreg available
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,13 +41,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # So do the flash backward's: its float32 CUDA-core products are fused
 # multiply-adds like the forward's, its bf16 ones run on the tensor cores
 # (no -fmad there), and it is held to its plain version at tolerances, not
-# bit for bit (its sums are tiled, the plain version's are not).
+# bit for bit (its sums are tiled, the plain version's are not).  The LM
+# head's products all run on the tensor cores; its split of a float32 value
+# into three bf16 pieces subtracts and never multiplies, so no flag touches
+# it.
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "metronome_fill": ("-fmad=false",),
     "metronome_score": ("-fmad=false",),
     "flash_attention": (),
     "flash_attention_bwd": (),
     "rg_lru": ("-fmad=false",),
+    "lm_head": (),
 }
 
 _LOCK = threading.Lock()

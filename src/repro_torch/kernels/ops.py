@@ -1,9 +1,10 @@
 """Public entry points of the port's kernels, with device dispatch.
 
 The model ops (``flash_attention`` and its gradient
-``flash_attention_bwd``, ``rg_lru`` and its gradient ``rg_lru_bwd``) take
-tensors and dispatch on their device: the kernel on a CUDA device (or
-raise), the plain version from :mod:`ref` on the CPU.
+``flash_attention_bwd``, ``rg_lru`` and its gradient ``rg_lru_bwd``, and
+``lm_head``, the LM head's float32 logits of bf16 operands with their
+gradients) take tensors and dispatch on their device: the kernel on a
+CUDA device (or raise), the plain version from :mod:`ref` on the CPU.
 Each Metronome op takes host arrays (any float dtype; ``core`` builds
 float64), casts them to the kernels' types here — float32, and uint8 for
 the 0/1 route matrix — copies them to ``device`` once, and dispatches on
@@ -19,8 +20,10 @@ import numpy as np
 import torch
 
 from .. import _device
+from .._spans import span
 from . import ref
 from .flash_attention import _flash_attention_bwd, flash_attention_fwd
+from .lm_head import _lm_head_dw, _lm_head_dx, _lm_head_fwd
 from .metronome_fill import metronome_fill
 from .metronome_score import (metronome_score_multilink,
                               metronome_score_multilink_batch,
@@ -36,6 +39,48 @@ def _to(x, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the LM head
+# ---------------------------------------------------------------------------
+
+LM_HEAD_SPAN = "repro_torch.lm_head"
+
+
+class _LMHead(torch.autograd.Function):
+    """logits (..., V) float32 of x (..., d) and the head w (d, V), both
+    bfloat16, by the head's kernels; the backward's two products by the
+    kernels too.  It saves x and w as they are, bf16 (w made contiguous
+    first, a copy only where it is not)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        w = w.contiguous()
+        ctx.save_for_backward(x, w)
+        with span(LM_HEAD_SPAN):
+            out = _lm_head_fwd(x.reshape(-1, x.shape[-1]), w)
+        return out.view(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.reshape(-1, w.shape[1]).contiguous()
+        dx = dw = None
+        with span(LM_HEAD_SPAN):
+            if ctx.needs_input_grad[0]:
+                dx = _lm_head_dx(g, w).view(x.shape)
+            if ctx.needs_input_grad[1]:
+                dw = _lm_head_dw(x.reshape(-1, x.shape[-1]), g)
+        return dx, dw
+
+
+def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x.float() @ w.float()`` for bfloat16 x (..., d) and w (d, V):
+    float32 logits (..., V), differentiable, the bf16 gradients rounded
+    once from float32 sums.  CPU tensors take the plain versions
+    (``ref.lm_head_*_ref``), CUDA tensors the kernels."""
+    return _LMHead.apply(x, w)
 
 
 # ---------------------------------------------------------------------------

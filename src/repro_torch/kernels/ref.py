@@ -6,7 +6,8 @@ kernels' wrappers take these for CPU tensors, the CPU tests hold them
 against the JAX package's oracles, and the chip smoke test holds each
 kernel against them on the card.  The Metronome kernels are float32
 throughout; attention accumulates in float32 and returns q's dtype, the
-RG-LRU recurrence carries a float32 state and returns x's dtype.
+RG-LRU recurrence carries a float32 state and returns x's dtype, the LM
+head's products are float32 products of upcast operands.
 """
 from __future__ import annotations
 
@@ -90,6 +91,40 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
     return dq.to(q.dtype), group_sum(dk).to(k.dtype), \
         group_sum(dv).to(v.dtype)
+
+
+def lm_head_fwd_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The LM head's logits (T, V) float32 = x (T, d) . w (d, V), both
+    upcast to float32: the expression ``models.model._logits`` keeps for
+    operands the kernels do not take."""
+    return x.float() @ w.float()
+
+
+def bf16x3_split_ref(a: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The head's backward kernels' split of float32 ``a`` into three
+    bfloat16 tensors: hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi -
+    mid), each subtraction in float32 (where it is exact), so that hi +
+    mid + lo is a exactly wherever lo does not fall below bfloat16's
+    normal range."""
+    a = a.float()
+    hi = a.to(torch.bfloat16)
+    r = a - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def lm_head_dx_ref(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The head's input gradient (T, d) in w's dtype from the logits'
+    float32 gradient ``g`` (T, V): autograd's float32 product through
+    ``lm_head_fwd_ref``, then the cast to the input's type."""
+    return g.float().mm(w.float().t()).to(w.dtype)
+
+
+def lm_head_dw_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The head's weight gradient (d, V) in x's dtype: autograd's float32
+    product x^T . g through ``lm_head_fwd_ref``, then the cast."""
+    return x.float().t().mm(g.float()).to(x.dtype)
 
 
 def rg_lru_ref(a: torch.Tensor, x: torch.Tensor,

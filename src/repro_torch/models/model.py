@@ -30,10 +30,11 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
-from torch.distributed.tensor import Partial, Replicate
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from .. import _device
 from .._tree import leaves, tree_map
+from ..kernels import ops as kernel_ops
 from ..sharding import (best_spec, distribute, gather_fsdp, logical_shard,
                         shard_tree)
 from ..sharding.local import (is_dtensor, local_range, on_local, replicated,
@@ -411,14 +412,53 @@ def _embed(params: Tree, cfg: ModelConfig,
     return logical_shard(x.to(cfg.dtype), "batch", None, None)
 
 
+def _head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """float32 logits (..., V) of the bfloat16 norm output x (..., d) and
+    head (d, V) by the head's kernels (``kernels.ops.lm_head``: the float32
+    products on the tensor cores).  On DTensors through :func:`on_local`:
+    each rank multiplies its rows of x by its vocab columns of the head,
+    both whole over d (x's row splits kept, the head's vocab split kept
+    where x's rows are whole on that mesh dim, all else gathered); x's
+    gradient block is a partial sum over the mesh dims that split the
+    vocab, the head's over those that split x's rows."""
+    if not (is_dtensor(x) or is_dtensor(head)):
+        return kernel_ops.lm_head(x, head)
+    mesh = (x if is_dtensor(x) else head).device_mesh
+    nd = x.dim()
+    rows, cols, out, grad_x, grad_head = [], [], [], [], []
+    for i, n in enumerate(mesh.shape):
+        px = x.placements[i] if is_dtensor(x) else Replicate()
+        ph = head.placements[i] if is_dtensor(head) else Replicate()
+        px = px if px.is_shard() and px.dim % nd != nd - 1 else Replicate()
+        ph = ph if (ph.is_shard() and ph.dim % 2 == 1
+                    and not px.is_shard()) else Replicate()
+        rows.append(px)
+        cols.append(ph)
+        out.append(px if px.is_shard()
+                   else Shard(nd - 1) if ph.is_shard() else Replicate())
+        grad_x.append(Partial() if n > 1 and ph.is_shard() else px)
+        grad_head.append(Partial() if n > 1 and px.is_shard() else ph)
+    return on_local(kernel_ops.lm_head, (x, head), ((-1,), (0,)), "lm_head",
+                    layouts=(rows, cols), grads=(grad_x, grad_head),
+                    out=out)
+
+
 def _logits(params: Tree, cfg: ModelConfig, x: torch.Tensor,
             shard: bool = True) -> torch.Tensor:
     """The head over the final norm; ``shard`` constrains the logits to
     (batch, -, vocab_act) as the JAX package's forward and decode do (its
-    prefill does not)."""
+    prefill does not).  float32 logits of a bfloat16 norm output and head
+    on the card go through the head's kernels (:func:`_head_product`: the
+    same float32 products on the tensor cores, on DTensors each rank's
+    block); float32 parameters and CPU tensors through the float32
+    product."""
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     head = gather_fsdp(params["head"], ("w_embed", "w_vocab"))
-    logits = x.to(cfg.logit_dtype) @ head.to(cfg.logit_dtype)
+    if (cfg.logit_dtype == torch.float32 and x.device.type == "cuda"
+            and x.dtype == head.dtype == torch.bfloat16):
+        logits = _head_product(x, head)
+    else:
+        logits = x.to(cfg.logit_dtype) @ head.to(cfg.logit_dtype)
     return logical_shard(logits, "batch", None, "vocab_act") if shard \
         else logits
 

@@ -616,6 +616,7 @@ def test_get_resolves_under_the_port(tmp_path):
 
 # ----------------------------------------------------------- the real tree
 PORT_KERNELS = ["flash_attention_fwd", "_flash_attention_bwd",
+                "_lm_head_fwd", "_lm_head_dx", "_lm_head_dw",
                 "metronome_fill", "metronome_score_multilink_batch",
                 "metronome_score_multilink", "metronome_score_pairwise",
                 "rg_lru_pallas", "_rg_lru_pallas_bwd"]

@@ -34,6 +34,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (_bwd_head_split,
                                                  _flash_attention_bwd,
                                                  flash_attention_fwd)
+from repro_torch.kernels import lm_head as lmh
 from repro_torch.kernels.rg_lru import _rg_lru_pallas_bwd, rg_lru_pallas
 from repro_torch.launch import train as ttrain
 
@@ -562,3 +563,175 @@ def test_train_entry_point_on_the_card_checkpoints_and_resumes(cuda, tmp_path):
     assert res.start == 3 and len(res.losses) == 2
     assert all(torch.isfinite(torch.tensor(res.losses)))
     assert latest_step(ckpt) == 5
+
+
+# the LM head's products: ragged T, d and V (T = 1 as a decode step, an
+# odd V as Whisper's 51,865 rows), then the cells' micro-batches
+# (InternLM2-20B, then Mistral-7B: T x d x V)
+LM_HEAD_SHAPES = [(3, 64, 1000), (1001, 64, 1000), (1001, 128, 1000),
+                  (1, 64, 999), (130, 64, 51865), (4096, 6144, 92544),
+                  (4096, 4096, 32000)]
+LM_HEAD_ERR_RATIO = 2.0  # of cuBLAS float32's largest error
+# and of its count of gradient elements off bf16(the float64 product),
+# plus a few elements where both counts are near zero
+LM_HEAD_OFF_SLACK = 8
+
+
+def _lm_head_operands(t, d, v, device):
+    """x as a norm's bf16 output, the head at the cells' init (std 0.02),
+    dlogits as the loss's: (softmax - onehot) / T, float32."""
+    g = torch.Generator(device=device).manual_seed(t + d + v)
+    x = torch.randn((t, d), generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn((d, v), generator=g, device=device) * 0.02).to(
+        torch.bfloat16)
+    p = torch.softmax(torch.randn((t, v), generator=g, device=device) * 2,
+                      dim=-1)
+    labels = torch.randint(0, v, (t,), generator=g, device=device)
+    p[torch.arange(t, device=device), labels] -= 1.0
+    return x, w, p / t
+
+
+def _max_err(got, want64) -> float:
+    return float((got.double() - want64).abs().max())
+
+
+@pytest.mark.parametrize("t,d,v", LM_HEAD_SHAPES)
+def test_lm_head_kernels_lose_no_precision(cuda, t, d, v):
+    x, w, dl = _lm_head_operands(t, d, v, cuda)
+    before = [f.launches for f in (lmh._lm_head_fwd, lmh._lm_head_dx,
+                                   lmh._lm_head_dw)]
+    cases = {
+        "forward": (lambda: lmh._lm_head_fwd(x, w),
+                    lambda: ref.lm_head_fwd_ref(x, w),
+                    lambda: x.double() @ w.double()),
+        "dx": (lambda: lmh._lm_head_dx(dl, w),
+               lambda: ref.lm_head_dx_ref(dl, w),
+               lambda: dl.double() @ w.double().t()),
+        "dw": (lambda: lmh._lm_head_dw(x, dl),
+               lambda: ref.lm_head_dw_ref(x, dl),
+               lambda: x.double().t() @ dl.double()),
+    }
+    errs, flips = {}, {}
+    for name, (kernel, cublas, exact) in cases.items():
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{name}: two calls differ"
+        want64 = exact()
+        plain = cublas()
+        errs[name] = (_max_err(got, want64), _max_err(plain, want64))
+        if name != "forward":  # elements off bf16(the float64 product)
+            want16 = want64.to(torch.bfloat16)
+            flips[name] = (int((got != want16).sum()),
+                           int((plain != want16).sum()))
+            del want16
+        del got, again, plain, want64
+        torch.cuda.empty_cache()
+    assert [f.launches - b for f, b in zip(
+        (lmh._lm_head_fwd, lmh._lm_head_dx, lmh._lm_head_dw), before)] == \
+        [2, 2, 2]
+    print(f"lm_head ({t}, {d}, {v}) largest error, kernel / cuBLAS "
+          f"float32:", {k: f"{a:.3g} / {b:.3g}" for k, (a, b) in
+                        errs.items()},
+          "elements off bf16(float64), kernel / cuBLAS float32:", flips)
+    for name, (kernel_err, cublas_err) in errs.items():
+        assert kernel_err <= LM_HEAD_ERR_RATIO * cublas_err, (
+            f"{name}: {kernel_err} against cuBLAS float32's {cublas_err}")
+    # the rounding to bf16 hides a coarser float32 sum from the largest
+    # error, not from the count of elements it rounds the other way
+    for name, (kernel_off, cublas_off) in flips.items():
+        assert kernel_off <= (LM_HEAD_ERR_RATIO * cublas_off
+                              + LM_HEAD_OFF_SLACK), (
+            f"{name}: {kernel_off} elements off bf16(float64) against "
+            f"cuBLAS float32's {cublas_off}")
+
+
+@pytest.mark.parametrize("t,d,v,scale", [(1024, 1024, 1024, -40),
+                                         (1000, 136, 1003, -10)])
+def test_lm_head_backward_split_is_exact(cuda, t, d, v, scale):
+    """dX and dW on operands whose float32 sums are exact in any order
+    (``test_torch_lm_head.exact_operands``): bit for bit with bf16(the
+    float64 product), as cuBLAS float32's; a split that dropped its third
+    piece differed in 2.3 elements in a thousand of dX, one that kept only
+    the first in 41% (builds of those on an H100)."""
+    from test_torch_lm_head import exact_operands
+    x, w, dl = exact_operands(t, d, v, seed=t + d, scale=scale,
+                              device=cuda)
+    for name, got, plain, exact in (
+            ("dx", lmh._lm_head_dx(dl, w), ref.lm_head_dx_ref(dl, w),
+             dl.double() @ w.double().t()),
+            ("dw", lmh._lm_head_dw(x, dl), ref.lm_head_dw_ref(x, dl),
+             x.double().t() @ dl.double())):
+        want = exact.to(torch.bfloat16)
+        assert torch.equal(plain, want), f"{name}: cuBLAS float32"
+        off = int((got != want).sum())
+        assert off == 0, f"{name}: {off} of {want.numel()} elements differ"
+
+
+def test_lm_head_kernels_on_a_fresh_thread(cuda):
+    """The backward's products launched from a thread that has made no
+    CUDA runtime call yet, as autograd's device thread can be."""
+    x, w, dl = _lm_head_operands(300, 64, 1000, cuda)
+    want = (lmh._lm_head_dx(dl, w), lmh._lm_head_dw(x, dl))
+    torch.cuda.synchronize()
+    out = {}
+
+    def launch():
+        try:
+            out["got"] = (lmh._lm_head_dx(dl, w), lmh._lm_head_dw(x, dl))
+        except RuntimeError as e:
+            out["error"] = e
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out["got"], want))
+
+
+def test_lm_head_refuses_what_it_does_not_take(cuda):
+    x, w, dl = _lm_head_operands(8, 64, 100, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lmh._lm_head_fwd(x[:, :60], w[:60])
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        lmh._lm_head_fwd(x.float(), w)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        lmh._lm_head_dx(dl.to(torch.bfloat16), w)
+
+
+def test_one_loss_backward_launches_the_head_kernels_once_each(cuda,
+                                                               monkeypatch):
+    """``loss_fn`` on bf16 parameters on the card: 1 forward launch of the
+    head, 2 in its backward, and the head's gradient is autograd's through
+    the float32 expression's within bf16 rounding."""
+    cfg = dataclasses.replace(configs.get_smoke_config("llama3-8b"),
+                              d_head=64)
+    assert cfg.param_dtype == torch.bfloat16
+    assert cfg.logit_dtype == torch.float32
+    params = models.init_model(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 65), generator=g, device=cuda)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "labels": tokens[:, 1:].contiguous()}
+    entries = (lmh._lm_head_fwd, lmh._lm_head_dx, lmh._lm_head_dw)
+    before = [f.launches for f in entries]
+    for leaf in _tree.leaves(params):
+        leaf.requires_grad_()
+    head = params["head"]
+    loss, _ = models.loss_fn(params, cfg, batch)
+    fwd = [f.launches - b for f, b in zip(entries, before)]
+    loss.backward()
+    torch.cuda.synchronize()
+    total = [f.launches - b for f, b in zip(entries, before)]
+    assert fwd == [1, 0, 0] and total == [1, 1, 1]
+    got = head.grad
+    head.grad = None
+    # the float32 expression in the kernels' place
+    monkeypatch.setattr(ops, "lm_head", lambda x, w: x.float() @ w.float())
+    loss_old, _ = models.loss_fn(params, cfg, batch)
+    loss_old.backward()
+    assert abs(float(loss.detach()) - float(loss_old.detach())) <= \
+        1e-5 * abs(float(loss_old.detach()))
+    assert _rel(got, head.grad) <= 1e-2
