@@ -18,19 +18,22 @@ P.V): the identity for the reference, a lower precision for its control.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import workcount
 from ..workcount import head_dim
 
 Cast = Callable[[torch.Tensor], torch.Tensor]
+# the program's loss has no auxiliary term for this family
+AUX_WEIGHT = 0.0
 
 
 def leaf_specs(model: dict) -> List[tuple]:
-    """(name, shape, std) of each weight in the program's tree order; the
-    output projections' std is scaled by the depth, as the program's own
-    initialisation does."""
+    """(name, shape, std) of each weight in the program's tree order, all
+    in ``param_dtype``; the output projections' std is scaled by the
+    depth, as the program's own initialisation does."""
     d, n, vocab = model["d_model"], model["n_layers"], model["vocab"]
     hd, h, kv, f = (head_dim(model), model["n_heads"], model["n_kv"],
                     model["d_ff"])
@@ -51,8 +54,12 @@ def leaf_specs(model: dict) -> List[tuple]:
     ]
 
 
-def attention_layers(model: dict) -> int:
-    return model["n_layers"]
+def token_weights(model: dict) -> int:
+    return workcount.token_weights(leaf_specs(model))
+
+
+def attention_windows(model: dict) -> List[int]:
+    return [model.get("window", 0)] * model["n_layers"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -101,9 +108,11 @@ def embed(top: Dict[str, torch.Tensor], tokens: torch.Tensor
 
 
 def block(model: dict, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-          cast: Cast) -> torch.Tensor:
-    """One layer on the float32 residual stream (B, S, d_model); ``lp``
-    holds the layer's float32 weights by their names under ``layers.``."""
+          cast: Cast, layer: int
+          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Layer ``layer`` on the float32 residual stream (B, S, d_model);
+    ``lp`` holds the layer's float32 weights by their names under
+    ``layers.``.  No auxiliary term."""
     b, s, _ = x.shape
     hd, h, kv = head_dim(model), model["n_heads"], model["n_kv"]
     eps = model["norm_eps"]
@@ -112,13 +121,13 @@ def block(model: dict, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     k = (hn @ cast(lp["attn.wk"])).reshape(b, s, kv, hd)
     v = (hn @ cast(lp["attn.wv"])).reshape(b, s, kv, hd)
     theta = model["rope_theta"]
-    o = attention(rope(q, theta), rope(k, theta), v, model.get("window", 0),
-                  cast)
+    o = attention(rope(q, theta), rope(k, theta), v,
+                  attention_windows(model)[layer], cast)
     x = x + cast(o.reshape(b, s, h * hd)) @ cast(lp["attn.wo"])
     hn = cast(rmsnorm(x, lp["ln_mlp.scale"], eps))
     gate = torch.nn.functional.silu(hn @ cast(lp["mlp.w_gate"]))
     act = gate * (hn @ cast(lp["mlp.w_up"]))
-    return x + cast(act) @ cast(lp["mlp.w_down"])
+    return x + cast(act) @ cast(lp["mlp.w_down"]), None
 
 
 def loss(model: dict, x: torch.Tensor, top: Dict[str, torch.Tensor],

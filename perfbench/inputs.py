@@ -12,12 +12,14 @@ from __future__ import annotations
 
 import hashlib
 import importlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
-LeafSpec = Tuple[str, Tuple[int, ...], float]
+# (name, shape, std) or (name, shape, std, dtype name)
+LeafSpec = Union[Tuple[str, Tuple[int, ...], float],
+                 Tuple[str, Tuple[int, ...], float, str]]
 
 
 def derived_seed(seed: int, *parts) -> int:
@@ -33,17 +35,18 @@ def family(model: dict):
 
 
 def leaf_specs(model: dict) -> List[LeafSpec]:
-    """(name, shape, std) of every weight, in the program's tree order;
-    a std of 0 marks a norm scale, which starts at ones."""
+    """(name, shape, std[, dtype]) of every weight, in the program's tree
+    order; a std of 0 marks a norm scale, which starts at ones."""
     return family(model).leaf_specs(model)
 
 
 def make_leaf(model: dict, seed: int, spec: LeafSpec,
               device: torch.device) -> torch.Tensor:
     """One weight leaf: std x a standard normal drawn on ``device`` in the
-    configuration's ``param_dtype`` (ones for a norm scale)."""
-    name, shape, std = spec
-    dtype = getattr(torch, model["param_dtype"])
+    spec's dtype, or the configuration's ``param_dtype`` where the spec
+    names none (ones for a norm scale)."""
+    name, shape, std = spec[:3]
+    dtype = getattr(torch, spec[3] if len(spec) > 3 else model["param_dtype"])
     if std == 0.0:
         return torch.ones(shape, dtype=dtype, device=device)
     gen = torch.Generator(device=device)

@@ -5,4 +5,4 @@ from perfbench import trace_read
 
 
 def read(record):
-    return trace_read.products_ms(record, head=False)
+    return trace_read.products_ms(record)

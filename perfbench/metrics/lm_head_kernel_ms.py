@@ -4,7 +4,7 @@ gradients): the kernels launched inside the program's span
 ``repro_torch.lm_head``, which the forward opens on the thread that runs
 the step and the backward on autograd's device thread, under
 ``torch.profiler``.  None where the trace holds no such span (a program
-whose head runs as float32 products, which ``lm_head_ms`` reads)."""
+whose head runs as float32 products)."""
 from perfbench import program_spans
 
 

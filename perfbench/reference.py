@@ -8,14 +8,16 @@ warm-up and cosine schedule), and returns the readings that ``judge``
 compares: each step's loss, the global gradient norm of the first step,
 each leaf's norm of the first gradient as the optimizer applies it (after
 the clip), and each leaf's norm of the change of its parameters after the
-steps.  A leaf is one weight of one layer.
+steps.  A leaf is one weight of one layer.  The loss of a micro-batch is
+the family's cross entropy plus its ``AUX_WEIGHT`` x the auxiliary terms
+its layers return, as the program's loss is.
 
-It keeps the configuration's storage: parameters are rounded to
-bfloat16 after each update, moments and the gradient sum are float32.
-It is computed layer by layer, so that it fits beside its own state: the
-forward keeps each layer's input, and the backward runs each layer again
-under autograd, from the last layer down.  Nothing here imports the
-program.
+It keeps the configuration's storage: parameters are rounded to their
+leaf's type (``param_dtype``, or the type its spec names) after each
+update, moments and the gradient sum are float32.  It is computed layer
+by layer, so that it fits beside its own state: the forward keeps each
+layer's input, and the backward runs each layer again under autograd,
+from the last layer down.  Nothing here imports the program.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ def leaf_names(model: dict) -> List[str]:
     """The leaves compared, top-level ones by their names and per-layer
     ones as ``layers.<i>.<name>``, in a fixed order."""
     out = []
-    for name, shape, _ in inputs.leaf_specs(model):
+    for name, shape, *_ in inputs.leaf_specs(model):
         if name.startswith(LAYER):
             out += [f"{LAYER}{i}.{name[len(LAYER):]}" for i in range(shape[0])]
         else:
@@ -104,18 +106,24 @@ class Reference:
 
     def micro_batch(self, tokens: torch.Tensor, labels: torch.Tensor,
                     acc: Dict[str, torch.Tensor]) -> float:
-        """Add one micro-batch's gradients into ``acc``; its loss."""
+        """Add one micro-batch's gradients into ``acc``; its loss.  Each
+        layer's backward takes the gradient of its output and its
+        auxiliary term's weight, so that the walk gives the gradient of
+        ``ce + AUX_WEIGHT x`` the sum of the layers' terms."""
         model, fam = self.model, self.fam
         n = model["n_layers"]
-        xs = []
+        xs, aux = [], []
         with torch.no_grad():
             x = fam.embed(self.params, tokens)
             for i in range(n):
                 xs.append(x)
-                x = fam.block(model, x, self.layer(i, False), self.cast)
+                x, a = fam.block(model, x, self.layer(i, False), self.cast, i)
+                if a is not None:
+                    aux.append(a)
         x.requires_grad_()
         top = {k: self.params[k].detach().float().requires_grad_()
-               for k in ("ln_f.scale", "head")}
+               for k in self.names if not k.startswith(LAYER)
+               and k != "embed"}
         loss = fam.loss(model, x, top, labels)
         loss.backward()
         for k, t in top.items():
@@ -125,14 +133,22 @@ class Reference:
         for i in reversed(range(n)):
             xin = xs.pop().requires_grad_()
             lp = self.layer(i, True)
-            fam.block(model, xin, lp, self.cast).backward(dx)
+            y, a = fam.block(model, xin, lp, self.cast, i)
+            outs, grads = [y], [dx]
+            if a is not None:
+                outs.append(a)
+                grads.append(torch.full_like(a, fam.AUX_WEIGHT))
+            torch.autograd.backward(outs, grads)
             for k, t in lp.items():
                 acc[f"{LAYER}{i}.{k}"] += t.grad
             dx = xin.grad
-            del xin, lp
+            del xin, lp, y, a, outs, grads
         acc["embed"].index_add_(0, tokens.reshape(-1),
                                 dx.reshape(-1, dx.shape[-1]))
-        return float(loss.detach())
+        loss = loss.detach()
+        if aux:
+            loss = loss + fam.AUX_WEIGHT * sum(aux)
+        return float(loss)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> dict:
         """One step of ``n_micro`` micro-batches: the mean of their losses

@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from perfbench import inputs, spec, workcount
+from perfbench import inputs, spec, train_cell, workcount
 
 
 @pytest.mark.parametrize("s,causal,window", [
@@ -46,12 +46,52 @@ def test_a_steps_flops_match_the_hand_count(name):
     want = (6 * (total - m["vocab"] * m["d_model"]) * tokens
             + 12 * hd * m["n_heads"] * pairs * m["n_layers"]
             * t["seqs_per_step"])
-    got = workcount.train_step_flops(shapes, m, t["seq"], t["seqs_per_step"],
-                                     m["n_layers"])
+    got = train_cell.step_flops(m, t)
     assert got == want
     # the issue's figures: 301 and ~382 TFLOP a step
     assert got / 1e12 == pytest.approx(
         {"internlm2-20b": 301.0, "mistral-7b": 382.4}[name], rel=2e-3)
+
+
+@pytest.mark.parametrize("windows", [
+    [0, 0], [5, 5, 5, 0], [5, 5, 5, 0] * 2, [3, 0, 9, 16], [16] * 3,
+])
+def test_a_steps_pairs_match_a_loop_over_each_layers_mask(windows):
+    # the attention part of a step's FLOPs, layer by layer: a 3:1 pattern
+    # of windowed and full layers among the cases
+    s, seqs, model = 9, 2, {"d_model": 64, "n_heads": 4}
+    pairs = sum(1 for w in windows for i in range(s) for j in range(i + 1)
+                if w <= 0 or i - j < w)
+    got = workcount.train_step_flops(0, windows, model, s, seqs)
+    assert got == 12 * 16 * 4 * pairs * seqs
+
+
+def _toy_moe_specs(n, d, f, held, vocab):
+    return [("embed", (vocab, d), 0.02), ("head", (d, vocab), 0.02),
+            ("layers.router", (n, d, 64), 0.02, "float32"),
+            ("layers.moe.w_gate", (n, held, d, f), 0.02),
+            ("layers.moe.w_up", (n, held, d, f), 0.02),
+            ("layers.moe.w_down", (n, held, f, d), 0.02),
+            ("layers.ln.scale", (n, d), 0.0)]
+
+
+@pytest.mark.parametrize("held,top_k,total", [
+    (8, 2, 128), (64, 8, 64), (4, 8, 64), (3, 1, 7),
+])
+def test_token_weights_count_held_experts_at_top_k_of_all(held, top_k, total):
+    n, d, f, vocab = 3, 16, 24, 100
+    specs = _toy_moe_specs(n, d, f, held, vocab)
+    routed = ("layers.moe.w_gate", "layers.moe.w_up", "layers.moe.w_down")
+    experts = n * held * 3 * d * f
+    rest = d * vocab + n * d * 64 + n * d
+    got = workcount.token_weights(specs, routed, top_k, total)
+    assert got == rest + experts * top_k // total
+    # a token passes through top_k experts' worth of each layer where all
+    # of them are held
+    if held == total:
+        assert got == rest + n * top_k * 3 * d * f
+    # no routing: every leaf but the embedding table
+    assert workcount.token_weights(specs) == rest + experts
 
 
 def test_attention_bound_by_hand():

@@ -12,8 +12,8 @@ from conftest import tiny
 
 VOCAB = 1000
 PHASES = ("forward_ms", "backward_ms", "grad_accum_ms", "optimizer_ms")
-EXISTING = ("lm_head_ms", "block_mm_ms", "attn_fwd_roofline",
-            "attn_bwd_roofline", "device_idle_pct", "mfu", "loop_host_ms")
+EXISTING = ("block_mm_ms", "attn_fwd_roofline", "attn_bwd_roofline",
+            "device_idle_pct", "mfu", "loop_host_ms")
 STEP = "repro_torch.train_step"
 SUB = {"forward": STEP + ".forward", "backward": STEP + ".backward",
        "accumulate": STEP + ".accumulate", "adamw": "repro_torch.adamw.update"}

@@ -82,9 +82,8 @@ def test_metrics_read_the_record(tmp_path):
                                    "step": [0.4] * 4, "readback": [0.1] * 4,
                                    "report": [2e-3] * 4}}}
     read = {m: spec.metric_reader(m)(record) for m in (
-        "lm_head_ms", "block_mm_ms", "attn_fwd_roofline", "attn_bwd_roofline",
+        "block_mm_ms", "attn_fwd_roofline", "attn_bwd_roofline",
         "device_idle_pct", "mfu", "loop_host_ms")}
-    assert read["lm_head_ms"] == pytest.approx((20 + 8) * 1e-3 / 2)
     assert read["block_mm_ms"] == pytest.approx(4 * 1e-3 / 2)
     from perfbench.workcount import attention_bound_s
     assert read["attn_fwd_roofline"] == pytest.approx(
@@ -101,6 +100,5 @@ def test_a_reader_with_nothing_to_read_returns_none(tmp_path):
     tr.update(steps=1, ops_steps=1, wall_s=1.0,
               attention={"fwd": [], "bwd": []}, ops=[])
     record = {"trace": tr, "vocab": VOCAB}
-    for m in ("lm_head_ms", "block_mm_ms", "attn_fwd_roofline",
-              "attn_bwd_roofline"):
+    for m in ("block_mm_ms", "attn_fwd_roofline", "attn_bwd_roofline"):
         assert spec.metric_reader(m)(record) is None

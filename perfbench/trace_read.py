@@ -143,18 +143,18 @@ def read(path: str) -> dict:
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 
 
-def products_ms(record: dict, head: bool):
+def products_ms(record: dict):
     """Device ms a step, over the steps traced with the operators' shapes
     (``ops_steps``), of the products whose innermost operator is a matrix
-    product: with ``head``, those with a vocabulary-sized dimension among
-    their inputs' shapes, else the others.  None where the trace placed
-    no product."""
+    product and which have no vocabulary-sized dimension among their
+    inputs' shapes (the LM head's, where it runs as such products, are
+    left out).  None where the trace placed no product."""
     tr = record["trace"]
     rows = [(dims, s) for name, dims, s in tr["ops"] if name in PRODUCT_OPS]
     if not rows:
         return None
     vocab = record["vocab"]
-    total = sum(s for dims, s in rows if (vocab in _ints(dims)) == head)
+    total = sum(s for dims, s in rows if vocab not in _ints(dims))
     return total / tr["ops_steps"] * 1e3
 
 

@@ -220,6 +220,15 @@ class Loop:
         return {"losses": losses, **first, "leaf_change_norms": change}
 
 
+def step_flops(model: dict, traffic: dict) -> int:
+    """The model FLOPs of one of the cell's steps, counted from the
+    family's weights a token passes through and its attention windows."""
+    fam = inputs.family(model)
+    return workcount.train_step_flops(
+        fam.token_weights(model), fam.attention_windows(model), model,
+        traffic["seq"], traffic["seqs_per_step"])
+
+
 def program_readings(cell: dict, seed: int, device: torch.device) -> dict:
     """The program's readings over the cell's checked steps, by the loop
     a run's set-up drives, in a state of its own that is freed after."""
@@ -302,10 +311,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool,
     log(f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     tokens = traffic["seq"] * traffic["seqs_per_step"]
-    layers = inputs.family(model).attention_layers(model)
-    shapes = {s[0]: s[1] for s in inputs.leaf_specs(model)}
-    flops = workcount.train_step_flops(shapes, model, traffic["seq"],
-                                       traffic["seqs_per_step"], layers)
+    layers = len(inputs.family(model).attention_windows(model))
+    flops = step_flops(model, traffic)
     marks = [("entered", time.perf_counter())]
     if device.type == "cuda":
         torch.cuda.set_device(device)

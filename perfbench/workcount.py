@@ -9,7 +9,7 @@ runs the call.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Iterable, List
 
 import numpy as np
 
@@ -34,19 +34,33 @@ def unmasked_pairs(s: int, causal: bool, window: int) -> int:
     return int(np.sum(hi - lo))
 
 
-def train_step_flops(weights: Dict[str, Iterable[int]], model: dict,
-                     seq: int, seqs: int, attn_layers: int) -> int:
-    """Model FLOPs of one training step, no remat: 6 x each weight but the
-    embedding table x the tokens, plus 12 D H per unmasked (q, k) pair of
-    each of the ``attn_layers`` causal attention layers of each sequence
-    (Q.K^T and P.V, forward and backward).  ``weights`` maps each leaf's
-    name to its shape."""
-    n = sum(int(np.prod(shape)) for name, shape in weights.items()
-            if name != "embed")
-    pairs = unmasked_pairs(seq, True, model.get("window", 0))
-    attn = (12 * head_dim(model) * model["n_heads"] * pairs
-            * attn_layers * seqs)
-    return 6 * n * seq * seqs + attn
+def token_weights(specs: Iterable[tuple], routed: Iterable[str] = (),
+                  top_k: int = 1, n_experts: int = 1) -> int:
+    """Weight elements one token's products pass through, from the leaf
+    specs (``(name, shape, ...)``): every leaf but the embedding table
+    (``embed``, a lookup), the routed experts' leaves (names in
+    ``routed``) at ``top_k / n_experts`` of the experts held here, since a
+    token is sent to ``top_k`` of all ``n_experts`` (floored to a whole
+    element).  Counted from the configuration: capacity drops and the
+    routing measured in a run play no part."""
+    routed = set(routed)
+    sizes = {spec[0]: int(np.prod(spec[1])) for spec in specs}
+    held = sum(n for name, n in sizes.items() if name in routed)
+    rest = sum(n for name, n in sizes.items()
+               if name not in routed and name != "embed")
+    return rest + held * top_k // n_experts
+
+
+def train_step_flops(weights: int, windows: List[int], model: dict,
+                     seq: int, seqs: int) -> int:
+    """Model FLOPs of one training step, no remat: 6 x the ``weights``
+    one token passes through (:func:`token_weights`) x the tokens, plus
+    12 D H per unmasked (q, k) pair of each causal attention layer of each
+    sequence (Q.K^T and P.V, forward and backward), the layers' windows
+    given in ``windows`` (0: none)."""
+    pairs = sum(unmasked_pairs(seq, True, w) for w in windows)
+    attn = 12 * head_dim(model) * model["n_heads"] * pairs * seqs
+    return 6 * weights * seq * seqs + attn
 
 
 def head_dim(model: dict) -> int:
