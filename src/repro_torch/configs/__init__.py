@@ -18,8 +18,14 @@ ARCHS: List[str] = [
     "xlstm_125m",
 ]
 
-_ALIAS: Dict[str, str] = {a.replace("_", "-"): a for a in ARCHS}
-_ALIAS.update({a: a for a in ARCHS})
+# the port's own architectures, which the JAX package does not have
+PORT_ARCHS: List[str] = [
+    "mellum2_12b_a2_5b",
+]
+
+_ALIAS: Dict[str, str] = {a.replace("_", "-"): a
+                          for a in ARCHS + PORT_ARCHS}
+_ALIAS.update({a: a for a in ARCHS + PORT_ARCHS})
 # assignment ids use dashes/dots
 _ALIAS.update({
     "arctic-480b": "arctic_480b",
@@ -32,6 +38,7 @@ _ALIAS.update({
     "whisper-small": "whisper_small",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "xlstm-125m": "xlstm_125m",
+    "mellum2-12b-a2.5b": "mellum2_12b_a2_5b",
 })
 
 

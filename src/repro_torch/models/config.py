@@ -3,7 +3,7 @@ package's fields and defaults, with torch dtypes)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -12,6 +12,20 @@ ATTN = "attn"
 RGLRU = "rglru"
 SLSTM = "slstm"
 MLSTM = "mlstm"
+
+
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN's rope parameters: the scale ``factor`` of the wavelengths
+    past ``original_max`` positions, the ramp between ``beta_fast`` and
+    ``beta_slow`` rotations, and the ``attention_factor`` on cos and
+    sin."""
+
+    factor: float
+    original_max: int
+    beta_fast: float
+    beta_slow: float
+    attention_factor: float
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,12 +48,32 @@ class ModelConfig:
     capacity_factor: float = 1.25
     dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
     moe_ep_dispatch: bool = False  # EP-consistent dispatch (see moe._buf_axes)
+    # the experts this chip holds of the router's ``n_experts``: the
+    # ``experts_held`` from ``expert_offset`` on (0: all of them); with a
+    # share, or with ``capacity_factor`` 0 (no capacity: nothing dropped),
+    # ``moe.held_experts_block`` computes the layer
+    experts_held: int = 0
+    expert_offset: int = 0
 
     # attention details
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t,h,w)
-    window: int = 0  # sliding-window size (griffin local attention)
+    # sliding-window size: griffin's local attention, and the windowed
+    # layers of dense and moe (``layer_window``)
+    window: int = 0
+    # dense and moe: layer i attends to all earlier positions where
+    # i % full_every == full_at, and over ``window`` keys otherwise (0:
+    # ``window`` on every layer)
+    full_every: int = 0
+    full_at: int = 0
+    # YaRN rope on the full-attention layers (factor 0: none), as
+    # ``transformers``' ``_compute_yarn_parameters`` defines it
+    yarn_factor: float = 0.0
+    yarn_original_max: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: float = 1.0
 
     # griffin / recurrent
     lru_width: int = 0
@@ -85,6 +119,32 @@ class ModelConfig:
             return tuple(SLSTM if i % 2 == 0 else MLSTM
                          for i in range(self.n_layers))
         return tuple(ATTN for _ in range(self.n_layers))
+
+    def layer_window(self, i: int) -> int:
+        """The attention window of dense or moe layer ``i`` (0: none)."""
+        if self.full_every and i % self.full_every == self.full_at:
+            return 0
+        return self.window
+
+    def layer_yarn(self, i: int) -> Optional["Yarn"]:
+        """YaRN's parameters for layer ``i``'s rope: on each layer without
+        a window, where ``yarn_factor`` is set; None for the plain rope."""
+        if not self.yarn_factor or self.layer_window(i):
+            return None
+        return Yarn(self.yarn_factor, self.yarn_original_max,
+                    self.yarn_beta_fast, self.yarn_beta_slow,
+                    self.yarn_attention_factor)
+
+    @property
+    def held_experts(self) -> bool:
+        """True where the expert layer holds a share of the experts or
+        drops nothing (``moe.held_experts_block``)."""
+        return self.n_experts > 0 and (self.experts_held > 0
+                                       or self.capacity_factor == 0)
+
+    @property
+    def n_held(self) -> int:
+        return self.experts_held or self.n_experts
 
     @property
     def sub_quadratic(self) -> bool:

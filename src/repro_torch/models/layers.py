@@ -25,7 +25,7 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from ..kernels import ops
 from ..sharding import logical_shard
 from ..sharding.local import is_dtensor, local_range, on_local, settled
-from .config import ModelConfig
+from .config import ModelConfig, Yarn
 from .remat import unbatched_product
 
 NEG_INF = -1e30
@@ -107,24 +107,57 @@ def layernorm(params: Dict, x: torch.Tensor, eps: float = 1e-6
 # RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
+def _yarn_dim(rotations: float, head_dim: int, theta: float,
+              original_max: int) -> float:
+    """The dimension index whose wavelength turns ``rotations`` times over
+    ``original_max`` positions (YaRN's ``find_correction_dim``)."""
+    return (head_dim * math.log(original_max / (rotations * 2 * math.pi))
+            / (2 * math.log(theta)))
+
+
 def rope_freqs(head_dim: int, theta: float,
-               device: Optional[torch.device] = None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+               device: Optional[torch.device] = None,
+               yarn: Optional[Yarn] = None) -> torch.Tensor:
+    """The D/2 inverse wavelengths; with ``yarn``, those past the ramp
+    from ``beta_fast`` to ``beta_slow`` rotations over ``original_max``
+    positions divided by ``factor``, and a linear blend inside it
+    (``transformers``' ``_compute_yarn_parameters``, in float64, rounded
+    once to float32)."""
+    if yarn is None:
+        return 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=device) / head_dim))
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float64,
+                                        device=device) / head_dim))
+    low = max(math.floor(_yarn_dim(yarn.beta_fast, head_dim, theta,
+                                   yarn.original_max)), 0)
+    high = min(math.ceil(_yarn_dim(yarn.beta_slow, head_dim, theta,
+                                   yarn.original_max)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(head_dim // 2, dtype=torch.float64, device=device)
+    ramp = ((i - low) / (high - low)).clamp(0.0, 1.0)
+    return (inv / yarn.factor * ramp + inv * (1.0 - ramp)).float()
 
 
-def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+def _rotate(x: torch.Tensor, angles: torch.Tensor,
+            scale: float = 1.0) -> torch.Tensor:
     sin, cos = angles.sin()[..., None, :], angles.cos()[..., None, :]
+    if scale != 1.0:
+        sin, cos = sin * scale, cos * scale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (D/2,)
-    return _rotate(x, positions[..., None].float() * freqs)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn: Optional[Yarn] = None) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  With
+    ``yarn``, its wavelengths and cos and sin times its
+    ``attention_factor`` (so that q.k carries its square)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device, yarn)  # (D/2,)
+    return _rotate(x, positions[..., None].float() * freqs,
+                   yarn.attention_factor if yarn is not None else 1.0)
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -376,6 +409,7 @@ def attention_layer(
     positions: Optional[torch.Tensor] = None,  # (B,S) or (3,B,S) for mrope
     causal: bool = True,
     window: int = 0,
+    yarn: Optional[Yarn] = None,  # YaRN rope (cfg.layer_yarn)
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,Smax,Kv,D) x2
     cache_index: Optional[Index] = None,  # current length
     kv_source: Optional[torch.Tensor] = None,  # cross attention source
@@ -418,8 +452,8 @@ def attention_layer(
             k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
             q_offset = positions[0, :, 0]
         else:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            q = apply_rope(q, positions, cfg.rope_theta, yarn)
+            k = apply_rope(k, positions, cfg.rope_theta, yarn)
             q_offset = positions[:, 0]
     else:
         q_offset = torch.zeros((b,), dtype=torch.int32, device=x.device)

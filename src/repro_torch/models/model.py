@@ -46,6 +46,9 @@ from . import remat
 from .config import ATTN, RGLRU, ModelConfig
 
 Tree = Dict[str, Union["Tree", torch.Tensor]]
+# the counters a layer may report, each with how a forward joins it over
+# the layers and a train step over its micro-batches
+COUNTERS: Dict[str, Callable] = dict(MOE.COUNTERS)
 
 
 def _stack(trees: List[Tree]) -> Tree:
@@ -268,27 +271,34 @@ def param_count(params: Tree) -> int:
 # ---------------------------------------------------------------------------
 
 def _dense_block_seq(cfg: ModelConfig, x, lp, positions, cache=None,
-                     cache_index=None):
-    """Pre-norm attention and MLP (or MoE) residuals: (x, moe aux loss,
-    cache); the aux loss is a float32 zero without experts."""
+                     cache_index=None, layer: int = 0):
+    """Pre-norm attention and MLP (or MoE) residuals of layer ``layer``,
+    with its window and rope (``cfg.layer_window``, ``cfg.layer_yarn``):
+    (x, moe aux loss, cache, counters); the aux loss is a float32 zero
+    without experts, the counters those of the held experts' layer
+    (``moe.held_experts_block``), else empty."""
     if cfg.bf16_grad_barrier:
         x = L.grad_bf16_barrier(x)
     h, new_cache = L.attention_layer(
         lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
-        positions=positions, causal=True, cache=cache,
-        cache_index=cache_index)
+        positions=positions, causal=True, window=cfg.layer_window(layer),
+        yarn=cfg.layer_yarn(layer), cache=cache, cache_index=cache_index)
     x = x + h
     y_in = L.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counters: Dict[str, torch.Tensor] = {}
     if cfg.n_experts > 0:
-        y, aux = MOE.moe_block(lp["moe"], cfg, y_in)
+        if cfg.held_experts:
+            y, aux, counters = MOE.held_experts_block(lp["moe"], cfg, y_in)
+        else:
+            y, aux = MOE.moe_block(lp["moe"], cfg, y_in)
         if cfg.dense_residual:
             y = y + L.mlp(lp["mlp"], y_in)
         if cfg.n_shared > 0:
             y = y + L.mlp(lp["shared"], y_in)
     else:
         y = L.mlp(lp["mlp"], y_in)
-    return x + y, aux, new_cache
+    return x + y, aux, new_cache, counters
 
 
 def _griffin_sub_seq(cfg: ModelConfig, x, sp, kind, positions, state=None,
@@ -484,18 +494,38 @@ def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     a float32 scalar summed over the layers (zero without experts).
     ``positions``: (B, S), or (3, B, S) for M-RoPE; None for 0..S-1.
     ``frames``: the encdec family's stub frame embeddings (B, F, d_model)."""
+    logits, aux, _ = _forward(params, cfg, tokens, positions, frames)
+    return logits, aux
+
+
+def join_counters(acc: Dict[str, torch.Tensor],
+                  new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``acc`` with ``new``'s counters joined in, each by its rule in
+    :data:`COUNTERS`."""
+    return {**acc, **{k: COUNTERS[k](acc[k], v) if k in acc else v
+                      for k, v in new.items()}}
+
+
+def _forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor],
+             frames: Optional[torch.Tensor]):
+    """:func:`forward`'s (logits, aux loss) and the counters its layers
+    report, joined over the layers (:func:`join_counters`)."""
     x = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counters: Dict[str, torch.Tensor] = {}
     if cfg.family in ("dense", "moe"):
         whole = _gather(params, cfg, "layers")
 
-        def layer(x, aux, lp):
-            x, a, _ = _dense_block_seq(cfg, x, whole(lp), positions)
-            return x, aux + a
+        def layer(x, aux, lp, i):
+            x, a, _, c = _dense_block_seq(cfg, x, whole(lp), positions,
+                                          layer=i)
+            return x, aux + a, c  # the counters leave a checkpoint as outputs
 
         layer = _maybe_remat(layer, cfg)
-        for lp in _unstack(params, "layers", cfg.n_layers):
-            x, aux = layer(x, aux, lp)
+        for i, lp in enumerate(_unstack(params, "layers", cfg.n_layers)):
+            x, aux, c = layer(x, aux, lp, i)
+            counters = join_counters(counters, c)
     elif cfg.family == "griffin":
         n_groups, n_tail = _n_groups(cfg)
         whole_g, whole_t = (_gather(params, cfg, "groups"),
@@ -535,7 +565,7 @@ def forward(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             x = body(x, lp, enc_out)
     else:
         raise ValueError(cfg.family)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x), aux, counters
 
 
 class _TokenCrossEntropy(torch.autograd.Function):
@@ -626,10 +656,11 @@ def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (+ MoE load-balance aux); labels < 0 are
-    masked.  Returns (total, {"ce", "aux", "tokens"})."""
-    logits, aux = forward(params, cfg, batch["tokens"],
-                          positions=batch.get("positions"),
-                          frames=batch.get("frames"))
+    masked.  Returns (total, {"ce", "aux", "tokens"}, and the counters
+    that the layers report: :data:`COUNTERS`)."""
+    logits, aux, counters = _forward(params, cfg, batch["tokens"],
+                                     batch.get("positions"),
+                                     batch.get("frames"))
     labels = logical_shard(batch["labels"], "batch", None)
     valid = labels >= 0
     ce = _cross_entropy(logits, labels.clamp_min(0).long()) * valid
@@ -638,8 +669,9 @@ def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     n_valid = replicated(valid.sum())
     loss = replicated(ce.sum()) / n_valid.clamp_min(1)
     aux = replicated(aux)
-    return loss + aux_weight * aux, {"ce": loss, "aux": aux,
-                                     "tokens": n_valid}
+    return loss + aux_weight * aux, {
+        "ce": loss, "aux": aux, "tokens": n_valid,
+        **{k: replicated(v) for k, v in counters.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +796,18 @@ _XLSTM_STATE = (("s_c", "c"), ("s_n", "n"), ("s_m", "m"))
 _MLSTM_STATE = (("m_C", "C"), ("m_n", "n"), ("m_m", "m"))
 
 
+def _serving_supported(cfg: ModelConfig) -> None:
+    """Raises for a configuration whose serving path is not written: one
+    with per-layer windows, YaRN or the held experts' layer."""
+    fields = [name for name, on in (
+        ("full_every", cfg.full_every), ("yarn_factor", cfg.yarn_factor),
+        ("experts_held/capacity_factor", cfg.held_experts)) if on]
+    if fields:
+        raise NotImplementedError(
+            f"{cfg.name}: prefill and decode do not take "
+            f"{', '.join(fields)}")
+
+
 @torch.no_grad()
 def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
@@ -772,6 +816,7 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Process the prompt, build the decode state. Returns (last_logits
     (B, 1, V), cache); ``max_len`` reserves cache room for decoding.  Runs
     on the device of the parameters, without autograd."""
+    _serving_supported(cfg)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), prefill=True,
                        device=params["embed"].device)
@@ -781,9 +826,9 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cfg.family in ("dense", "moe"):
         for i, lp in enumerate(_layers(params, cfg, "layers",
                                        cfg.n_layers)):
-            x, _, _ = _dense_block_seq(cfg, x, lp, positions,
-                                       cache=(cache["k"][i], cache["v"][i]),
-                                       cache_index=0)
+            x, _, _, _ = _dense_block_seq(
+                cfg, x, lp, positions, cache=(cache["k"][i], cache["v"][i]),
+                cache_index=0, layer=i)
     elif cfg.family == "griffin":
         n_groups, n_tail = _n_groups(cfg)
         for i, gp in enumerate(_layers(params, cfg, "groups", n_groups)):
@@ -836,6 +881,7 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
 
     The cache's tensors are updated in place and returned with the index
     advanced; the step reads no value back to the host."""
+    _serving_supported(cfg)
     b = tokens.shape[0]
     index = cache["index"]
     x = _embed(params, cfg, tokens)
@@ -843,9 +889,9 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     if cfg.family in ("dense", "moe"):
         for i, lp in enumerate(_layers(params, cfg, "layers",
                                        cfg.n_layers)):
-            x, _, _ = _dense_block_seq(cfg, x, lp, pos,
-                                       cache=(cache["k"][i], cache["v"][i]),
-                                       cache_index=index)
+            x, _, _, _ = _dense_block_seq(
+                cfg, x, lp, pos, cache=(cache["k"][i], cache["v"][i]),
+                cache_index=index, layer=i)
     elif cfg.family == "griffin":
         x = _griffin_decode(params, cfg, cache, x, pos)
     elif cfg.family == "xlstm":

@@ -28,7 +28,8 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
-from ..models import decode_step, init_model, loss_fn, prefill
+from ..models import (COUNTERS, decode_step, init_model, join_counters,
+                      loss_fn, prefill)
 from ..models.config import ModelConfig, ShapeConfig
 from ..optim import AdamWConfig, adamw_init, adamw_update, quantize_int8
 from ..sharding import (best_spec, current_rules, distribute, logical_shard,
@@ -99,7 +100,8 @@ def build_train_step(
     the numerics of sending the cross-pod all-reduce at int8), and applied
     by AdamW, which updates ``state``'s parameters and moments in place.
     Metrics: ``loss``, ``aux``, ``grad_norm`` and ``lr``, float32 tensors
-    on the parameters' device.
+    on the parameters' device, and the counters the loss reports
+    (``models.COUNTERS``), joined over the micro-batches.
 
     The batch is constrained to ("batch", ...): with DTensor parameters a
     plain batch (the global batch, alike on every rank) becomes a DTensor
@@ -140,6 +142,7 @@ def build_train_step(
         # 0 + x is x: the sums start from the first micro-batch's values,
         # which are DTensors when the parameters are
         loss_sum = aux_sum = 0.0
+        counters: Dict[str, torch.Tensor] = {}
         for i in range(n_micro):
             with span(FORWARD_SPAN):
                 xs = [p.detach().requires_grad_() for p in params]
@@ -159,6 +162,9 @@ def build_train_step(
                 del g
                 loss_sum = loss_sum + loss.detach()
                 aux_sum = aux_sum + metrics["aux"].detach()
+                counters = join_counters(counters, {
+                    k: v.detach() for k, v in metrics.items()
+                    if k in COUNTERS})
             del loss, metrics
         with torch.no_grad(), span(ACCUMULATE_SPAN):
             for acc in grads:
@@ -172,7 +178,7 @@ def build_train_step(
             opt_cfg, state.params, rebuild(state.params, grads), state.opt)
         del grads
         metrics = {"loss": loss_sum / n_micro, "aux": aux_sum / n_micro,
-                   **opt_metrics}
+                   **counters, **opt_metrics}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
